@@ -13,6 +13,8 @@ def pytest_addoption(parser):
 
 
 def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips with a reason without one")
     seed = config.getoption("--seed")
     if seed is not None:
         import _propcheck
