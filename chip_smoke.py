@@ -4,24 +4,36 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (exit code != 0):
-  1. card   - requires CUDA; prints the card's name and power limit;
-  2. build  - compiles every kernel of the serving path from the sources
-              in this checkout (nvcc, sm_90a) and prints the build time;
-  3. kernel - holds the flash-attention kernel against its plain PyTorch
-              version at the serving path's shapes, and times kernel,
-              plain version, torch's scaled_dot_product_attention (a
-              yardstick only; the port never calls it) and the bound;
-  4. serve  - full-width qwen3-8b (bf16, seeded random weights) behind
-              ServeEngine: 8 requests, 4 slots; checks the kernel's
-              launch count, finite logits, and the prefill logits against
-              the plain-attention path of the same model (in f32
-              activations; the bf16 distances are printed); then profiles
-              one decode tick and one tick with a 2048-token prefill;
+  1. card    - requires CUDA; prints the card's name and power limit;
+  2. build   - compiles every kernel (flash_attention.cu, rwkv6_scan.cu)
+               from the sources in this checkout, one nvcc each, in
+               parallel (sm_90a); prints build times and ptxas registers;
+  3. kernel  - holds each kernel against its plain PyTorch version at the
+               main paths' shapes and times kernel, plain version, the
+               library call where one exists (a yardstick only; the port
+               never calls it) and the bound;
+  4. serve   - full-width qwen3-8b (bf16, seeded random weights) behind
+               ServeEngine: 8 requests, 4 slots; checks the flash kernel's
+               launch count, finite logits, and the prefill logits against
+               the plain-attention path of the same model (in f32
+               activations; the bf16 distances are printed); then profiles
+               one decode tick and one tick with a 2048-token prefill;
+  5. forward - full-width, full-depth rwkv6-3b (bf16, seed 0,
+               scan_impl="pallas") over 4 x 2048 seeded tokens through
+               forward and loss_fn: 32 WKV6 kernel launches each, finite
+               logits and loss, the kernel path against the plain chunked
+               path in f32 activations (bf16 distances printed), and
+               prefill + decode against forward on a 777-token prompt;
+  6. serve   - rwkv6-3b behind ServeEngine: 8 requests, 4 slots, 32 new
+               tokens; every request completes with finite logits; prefill
+               takes the state-returning chunked path, so the kernel runs
+               0 times, as in the reference;
 then prints a JSON line of kernel numbers and, last, the JSON result line.
 Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -37,6 +49,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
 ARCH = "qwen3-8b"
+RWKV_ARCH = "rwkv6-3b"
+RWKV_BATCH, RWKV_SEQ = 4, 2048
 PROMPT_LENS = (128, 256, 512, 777, 1024, 1500, 2048, 64)
 MAX_NEW = 32
 SLOTS = 4
@@ -82,7 +96,7 @@ def attention_bound(B, Hq, Hkv, Sq, Skv, D, causal, q_offset, dtype_name):
 
 
 def kernel_cases(torch, fa):
-    """Kernel vs plain version on the card; returns one dict per case."""
+    """Flash kernel vs plain version on the card; one dict per case."""
     import torch.nn.functional as F
     cases = []
     for s in (128, 1024, 2048, 777):
@@ -157,15 +171,16 @@ def to_f32(tree):
     return tree.float()
 
 
-def profile_step(torch, eng, label: str):
-    """One engine tick under torch.profiler: device busy share, top kernels."""
+def profile_call(torch, fn, label: str):
+    """One call of ``fn`` under torch.profiler: device busy share, top
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        eng.step()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -182,26 +197,109 @@ def profile_step(torch, eng, label: str):
     return res
 
 
-def serve(torch, card: str):
-    """Full-width qwen3-8b behind ServeEngine; returns the serve numbers."""
-    import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import init_params, prefill
+def profile_ticks(torch, cfg, params, prompts):
+    """Where one engine tick's time goes: a decode tick of 4 slots, and a
+    tick that also prefills the 2048-token prompt."""
     from repro_torch.serve import engine as engine_mod
+    peng = engine_mod.ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                                  seed=SEED, device="cuda")
+    for i in range(SLOTS):    # 3 tokens: admission, one tick, the profiled
+        peng.add_request(engine_mod.Request(rid=i, prompt=prompts[i],
+                                            max_new_tokens=3))
+    peng.step()
+    name = cfg.name
+    prof = {"decode_tick": profile_call(torch, peng.step,
+                                        f"{name} decode_tick")}
+    peng.add_request(engine_mod.Request(rid=SLOTS, max_new_tokens=2,
+                                        prompt=prompts[PROMPT_LENS.index(2048)]))
+    prof["prefill_2048_tick"] = profile_call(torch, peng.step,
+                                             f"{name} prefill_2048_tick")
+    return prof
 
-    cfg = get_config(ARCH).replace(param_dtype="bfloat16",
-                                   attention_impl="pallas")
-    t0 = time.perf_counter()
+
+def wkv_bound(B, H, S, D):
+    """(bound ms, what bounds it, counts) of the WKV6 function on 4-byte
+    floats: inputs r, k, v, w, u read once and y written once, against the
+    f32 operations of its cheapest form, the token-by-token recurrence
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t (3 D^2: w*S, k*v, add) and
+    y_t = r_t S_{t-1} + (r_t . (u * k_t)) v_t (2 D^2 + 5 D).  It needs no
+    exponential.  ``chunked_sfu_ops`` counts the exp/log operations of the
+    kernel's chunked log-space form: a cost of that design, not part of
+    the bound."""
+    flops = B * H * S * (5 * D * D + 5 * D)
+    nbytes = 4 * (5 * B * H * S * D + H * D)
+    sfu = 0
+    for c0 in range(0, S, 64):
+        n = min(64, S - c0)
+        sfu += 2 * n * D + n * (n - 1) // 2 * D   # log w, e^{L_prev}, intra
+        if c0 + 64 < S:
+            sfu += n * D + D                      # e^{L_C - L}, e^{L_C}
+    t_ops = flops / PEAK_FLOPS["float32"]
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            dict(bytes=nbytes, flops=flops, chunked_sfu_ops=sfu * B * H))
+
+
+def wkv_cases(torch, rw):
+    """WKV6 kernel vs plain version on the card; one dict per case.  The
+    inputs are laid out [B,S,H,D] and go in as [B,H,S,D] views, as the
+    model's ``ops.rwkv6_scan`` hands them over."""
+    cases = [dict(B=1, H=40, S=2048, D=64, decay=None),
+             dict(B=4, H=40, S=2048, D=64, decay=None),
+             dict(B=1, H=40, S=777, D=64, decay=None),
+             dict(B=2, H=3, S=128, D=64, decay=None),
+             dict(B=1, H=1, S=256, D=64, decay=1e-6)]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    params = init_params(cfg, gen, "cuda")
-    torch.cuda.synchronize()
-    print(f"serve: {cfg.name} {cfg.param_count() / 1e9:.3f} B params "
-          f"(bf16, seed {SEED}) initialised in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    results = []
+    for c in cases:
+        shape = (c["B"], c["S"], c["H"], c["D"])
 
-    # time each prefill and check every logit the engine sees is finite
+        def rnd(*sh):
+            return torch.randn(*sh, generator=gen, device="cuda")
+
+        r, k, v = rnd(*shape), rnd(*shape), rnd(*shape)
+        w = (torch.exp(-torch.exp(rnd(*shape))) if c["decay"] is None
+             else torch.full(shape, c["decay"], device="cuda"))
+        r, k, v, w = (t.transpose(1, 2) for t in (r, k, v, w))
+        u = rnd(c["H"], c["D"])
+        out = rw.rwkv6_scan(r, k, v, w, u)
+        want = rw.rwkv6_scan_plain(r, k, v, w, u)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"non-finite kernel output: {c}")
+        diff = (out - want).abs()
+        max_err = float(diff.max())
+        if c["decay"] is None:
+            # scale-normalised, as tests/test_kernels.py's sweep
+            tol = 2e-4
+            err = max_err / (float(want.abs().max()) + 1.0)
+        else:
+            tol = 1e-3
+            err = float((diff / (1.0 + want.abs())).max())
+        if err > tol:
+            raise AssertionError(f"kernel disagrees with plain version: {c}, "
+                                 f"error {err} > {tol}")
+        kernel_ms = cuda_ms(torch, lambda: rw.rwkv6_scan(r, k, v, w, u),
+                            iters=20)
+        plain_ms = cuda_ms(torch, lambda: rw.rwkv6_scan_plain(r, k, v, w, u),
+                           iters=3, warmup=1)
+        bound_ms, bound_by, work = wkv_bound(c["B"], c["H"], c["S"], c["D"])
+        res = dict(c, max_err=max_err, checked_err=err, tol=tol,
+                   kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=bound_ms, bound_by=bound_by, **work)
+        results.append(res)
+        print("kernel case rwkv6_scan " + json.dumps(res), flush=True)
+    return results
+
+
+def drive_engine(torch, cfg, params, prompts):
+    """Serve ``prompts`` on ``ServeEngine`` (SLOTS slots, MAX_NEW new tokens
+    each), timing each prefill and each tick and checking that every
+    request completes and every logit is finite.  Returns the engine and
+    its numbers."""
+    from repro_torch.serve import engine as engine_mod
     prefill_ms, decode_logits_ok = [], []
     real_prefill, real_decode = engine_mod.prefill, engine_mod.decode_step
 
@@ -222,9 +320,6 @@ def serve(torch, card: str):
         return logits, cache
 
     engine_mod.prefill, engine_mod.decode_step = timed_prefill, checked_decode
-    rng = np.random.RandomState(SEED)
-    prompts = [rng.randint(1, cfg.vocab_size - 1, size=n).tolist()
-               for n in PROMPT_LENS]
     try:
         eng = engine_mod.ServeEngine(cfg, params, slots=SLOTS,
                                      max_len=MAX_LEN, seed=SEED,
@@ -233,7 +328,6 @@ def serve(torch, card: str):
             eng.add_request(engine_mod.Request(rid=i, prompt=pr,
                                                max_new_tokens=MAX_NEW))
         torch.cuda.reset_peak_memory_stats()
-        fa.flash_attention.launches = 0
         tick_ms = []
         t_serve = time.perf_counter()
         while eng.queue or any(s.active for s in eng.slot_states):
@@ -245,7 +339,6 @@ def serve(torch, card: str):
             # the tick's decode: its time less its prefills'
             tick_ms.append(ms - sum(x[1] for x in prefill_ms[n_pre:]))
         serve_s = time.perf_counter() - t_serve
-        launches = fa.flash_attention.launches
     finally:
         engine_mod.prefill, engine_mod.decode_step = real_prefill, real_decode
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -255,11 +348,69 @@ def serve(torch, card: str):
         if not req.done or len(req.output) != MAX_NEW:
             raise AssertionError(f"request {i} done={req.done} with "
                                  f"{len(req.output)} of {MAX_NEW} tokens")
+    if not all(bool(ok) for ok in decode_logits_ok):
+        raise AssertionError("non-finite decode logits")
+    # output tokens: the decode ticks' plus the first token of each prefill
+    tokens = eng.tokens_generated + len(prompts)
+    return eng, dict(requests=len(prompts), slots=SLOTS, max_len=MAX_LEN,
+                     max_new_tokens=MAX_NEW,
+                     prefill_ms={str(n): ms for n, ms in prefill_ms},
+                     ticks=len(tick_ms),
+                     decode_ms_per_tick_mean=sum(tick_ms) / len(tick_ms),
+                     decode_ms_per_tick_median=sorted(tick_ms)[
+                         len(tick_ms) // 2],
+                     tokens=tokens, serve_s=serve_s,
+                     tokens_per_s=tokens / serve_s,
+                     max_memory_allocated_gb=peak_gb)
+
+
+def seeded_params(torch, cfg):
+    from repro_torch.models import init_params
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {n_params(params) / 1e9:.3f} B params (bf16, seed "
+          f"{SEED}) initialised in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return params
+
+
+def n_params(tree) -> int:
+    """Elements in a params tree (dicts, lists, tensors)."""
+    if isinstance(tree, dict):
+        return sum(n_params(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(n_params(v) for v in tree)
+    return tree.numel()
+
+
+def prompts_for(cfg):
+    import numpy as np
+    rng = np.random.RandomState(SEED)
+    return [rng.randint(1, cfg.vocab_size - 1, size=n).tolist()
+            for n in PROMPT_LENS]
+
+
+def serve(torch, card: str):
+    """Full-width qwen3-8b behind ServeEngine; returns the serve numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import prefill
+    from repro_torch.serve import engine as engine_mod
+
+    cfg = get_config(ARCH).replace(param_dtype="bfloat16",
+                                   attention_impl="pallas")
+    params = seeded_params(torch, cfg)
+    prompts = prompts_for(cfg)
+    fa.flash_attention.launches = 0
+    eng, res = drive_engine(torch, cfg, params, prompts)
+    launches = fa.flash_attention.launches
     if launches != cfg.num_layers * len(prompts):
         raise AssertionError(f"flash kernel launched {launches} times, want "
                              f"{cfg.num_layers} x {len(prompts)} prefills")
-    if not all(bool(ok) for ok in decode_logits_ok):
-        raise AssertionError("non-finite decode logits")
+    del eng
 
     # The same prompt through the plain chunked attention path.  In bf16 the
     # two paths' logits part by ~0.07 after 36 layers, and each is about as
@@ -294,32 +445,118 @@ def serve(torch, card: str):
                 "kernel_path_vs_f32": float((lo_k - lo_x32).abs().max()),
                 "plain_path_vs_f32": float((lo_x - lo_x32).abs().max())}
 
-    # where one tick's time goes: a decode tick of 4 slots, and a tick that
-    # also prefills the 2048-token prompt
-    peng = engine_mod.ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
-                                  seed=SEED, device="cuda")
-    for i in range(SLOTS):    # 3 tokens: admission, one tick, the profiled
-        peng.add_request(engine_mod.Request(rid=i, prompt=prompts[i],
-                                            max_new_tokens=3))
-    peng.step()
-    prof = {"decode_tick": profile_step(torch, peng, "decode_tick")}
-    peng.add_request(engine_mod.Request(rid=SLOTS, max_new_tokens=2,
-                                        prompt=prompts[PROMPT_LENS.index(2048)]))
-    prof["prefill_2048_tick"] = profile_step(torch, peng, "prefill_2048_tick")
-    del peng
+    prof = profile_ticks(torch, cfg, params, prompts)
 
-    # output tokens: the decode ticks' plus the first token of each prefill
-    tokens = eng.tokens_generated + len(prompts)
-    res = dict(card=card, arch=cfg.name, requests=len(prompts),
-               slots=SLOTS, max_len=MAX_LEN, max_new_tokens=MAX_NEW,
-               prefill_ms={str(s): ms for s, ms in prefill_ms},
-               ticks=len(tick_ms),
-               decode_ms_per_tick_mean=sum(tick_ms) / len(tick_ms),
-               decode_ms_per_tick_median=sorted(tick_ms)[len(tick_ms) // 2],
-               tokens=tokens, serve_s=serve_s, tokens_per_s=tokens / serve_s,
-               max_memory_allocated_gb=peak_gb, flash_launches=launches,
+    res = dict(card=card, arch=cfg.name, **res, flash_launches=launches,
                prefill_parity_f32_max_err=parity_err,
                prefill_bf16_max_err=bf16_err, profile=prof)
+    print("serve " + json.dumps(res), flush=True)
+    return res
+
+
+def scaled_err(got, want) -> float:
+    """max |got - want| / (max |want| + 1)."""
+    return float((got - want).abs().max()) / (float(want.abs().max()) + 1.0)
+
+
+def rwkv_forward(torch, card: str, cfg, params):
+    """Full-width rwkv6-3b forward and loss through the WKV6 kernel."""
+    import numpy as np
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.models import decode_step, forward, loss_fn, prefill
+
+    B, S = RWKV_BATCH, RWKV_SEQ
+    rng = np.random.RandomState(SEED)
+    seq = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(B, S + 1)))
+    seq = seq.to("cuda")
+    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:],
+             "positions": torch.arange(S, device="cuda")[None].expand(B, S)}
+    forward(cfg, params, batch)                       # warm-up
+    torch.cuda.synchronize()
+
+    rw.rwkv6_scan.launches = 0
+    t = time.perf_counter()
+    logits, _ = forward(cfg, params, batch)
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t) * 1e3
+    launches = rw.rwkv6_scan.launches
+    if launches != cfg.num_layers:
+        raise AssertionError(f"WKV6 kernel launched {launches} times in one "
+                             f"forward, want {cfg.num_layers}")
+    if tuple(logits.shape) != (B, S, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"bad forward logits {tuple(logits.shape)}")
+    n0 = rw.rwkv6_scan.launches
+    t = time.perf_counter()
+    loss, metrics = loss_fn(cfg, params, batch)
+    torch.cuda.synchronize()
+    loss_ms = (time.perf_counter() - t) * 1e3
+    if rw.rwkv6_scan.launches != n0 + cfg.num_layers:
+        raise AssertionError("loss_fn did not run the kernel once per layer")
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"non-finite loss {float(loss)}")
+    prof = profile_call(torch, lambda: forward(cfg, params, batch),
+                        f"{cfg.name} forward")
+
+    # The kernel path against the plain chunked path (scan_impl="xla") in
+    # f32 activations (the bf16-valued weights, cast): the same math in
+    # another summation order, through 32 layers, within 1e-3 of the
+    # logits' scale.  The bf16 distances are printed beside it.
+    lo_x = forward(cfg.replace(scan_impl="xla"), params, batch)[0]
+    p32 = to_f32(params)
+    c32 = cfg.replace(dtype="float32", param_dtype="float32")
+    lo_k32 = forward(c32, p32, batch)[0]
+    lo_x32 = forward(c32.replace(scan_impl="xla"), p32, batch)[0]
+    parity = scaled_err(lo_k32, lo_x32)
+    if parity > 1e-3:
+        raise AssertionError(f"f32 logits: kernel path vs plain path scaled "
+                             f"error {parity} beyond 1e-3")
+    bf16_err = {"kernel_vs_plain_path": float((logits.float() - lo_x.float())
+                                              .abs().max()),
+                "kernel_path_vs_f32": float((logits.float() - lo_x32)
+                                            .abs().max()),
+                "plain_path_vs_f32": float((lo_x.float() - lo_x32)
+                                           .abs().max()),
+                "f32_max_abs_logit": float(lo_x32.abs().max())}
+    del lo_x, lo_k32, lo_x32, logits
+
+    # prefill(776 tokens) + decode(the 777th) against forward(777)[-1], in
+    # f32: the state-returning chunked path (a ragged last chunk) and the
+    # one-token recurrence against the kernel path
+    toks = seq[:1, :777]
+    pos = torch.arange(777, device="cuda")[None]
+    full = forward(c32, p32, {"tokens": toks, "positions": pos})[0][:, -1]
+    _, cache = prefill(c32, p32, {"tokens": toks[:, :-1],
+                                  "positions": pos[:, :-1]}, max_len=MAX_LEN)
+    dec = decode_step(c32, p32, toks[:, -1:], cache)[0][:, 0]
+    decode_err = scaled_err(dec, full)
+    if decode_err > 1e-3:
+        raise AssertionError(f"f32 prefill + decode vs forward: scaled error "
+                             f"{decode_err} beyond 1e-3")
+    del p32
+
+    res = dict(card=card, arch=cfg.name, batch=B, seq=S,
+               forward_ms=forward_ms, tokens_per_s=B * S / forward_ms * 1e3,
+               loss_fn_ms=loss_ms, loss=float(loss), ce=float(metrics["ce"]),
+               wkv_launches=launches, parity_f32_scaled_err=parity,
+               bf16_max_err=bf16_err, decode_vs_forward_f32_scaled_err=
+               decode_err, profile=prof)
+    print("forward " + json.dumps(res), flush=True)
+    return res
+
+
+def rwkv_serve(torch, card: str, cfg, params):
+    """rwkv6-3b behind ServeEngine: the kernel is not on this path."""
+    from repro_torch.kernels import rwkv6_scan as rw
+    prompts = prompts_for(cfg)
+    rw.rwkv6_scan.launches = 0
+    _, res = drive_engine(torch, cfg, params, prompts)
+    if rw.rwkv6_scan.launches != 0:
+        raise AssertionError(f"WKV6 kernel launched {rw.rwkv6_scan.launches}"
+                             " times in serving; prefill should take the "
+                             "state-returning chunked path")
+    prof = profile_ticks(torch, cfg, params, prompts)
+    res = dict(card=card, arch=cfg.name, **res, wkv_launches=0, profile=prof)
     print("serve " + json.dumps(res), flush=True)
     return res
 
@@ -335,32 +572,67 @@ def main() -> int:
     sys.path.insert(0, SRC)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def phase(name):
+        print(f"== {name} (at {time.perf_counter() - t_start:.1f} s)",
+              flush=True)
 
     # 1. card
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
+    phase("build")
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as rw
+    names = ("flash_attention", "rwkv6_scan")
     t0 = time.perf_counter()
-    _build.load("flash_attention")
-    seconds, log = _build.build_report("flash_attention")
-    print(f"build: flash_attention.cu in {seconds:.1f} s "
-          f"(load {time.perf_counter() - t0:.1f} s)", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.load, names))
+    print(f"build: both kernels loaded in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name in names:
+        seconds, log = _build.build_report(name)
+        print(f"build: {name}.cu in {seconds:.1f} s", flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
 
-    # 3. kernel vs plain version
+    # 3. kernels vs plain versions
+    phase("kernel")
     cases = kernel_cases(torch, fa)
+    wcases = wkv_cases(torch, rw)
 
-    # 4. serve
+    # 4. qwen3-8b serving through the flash kernel
+    phase("serve qwen3-8b")
     res = serve(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 5. kernel line: the main path's largest prefill shape
+    # 5.-6. rwkv6-3b: forward and loss through the WKV6 kernel, then serving
+    from repro_torch.configs import get_config
+    cfg = get_config(RWKV_ARCH).replace(param_dtype="bfloat16",
+                                        attention_impl="pallas",
+                                        scan_impl="pallas")
+    params = seeded_params(torch, cfg)
+    with torch.inference_mode():
+        phase("forward rwkv6-3b")
+        fwd = rwkv_forward(torch, card, cfg, params)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase("serve rwkv6-3b")
+        rwkv_serve(torch, card, cfg, params)
+    del params
+
+    # 7. kernel line: each kernel at its main path's largest shape
+    phase("done")
     big = next(c for c in cases if c["Sq"] == 2048)
+    wbig = next(c for c in wcases if c["B"] == RWKV_BATCH
+                and c["S"] == RWKV_SEQ)
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -375,9 +647,23 @@ def main() -> int:
         "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"],
         "library_ms": big["library_ms"],
+    }, {
+        "name": "rwkv6_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:31",
+        "tpu_kernel": "kernels/rwkv6_scan.py:_wkv_kernel",
+        "launches": fwd["wkv_launches"],
+        "max_abs_err": max(c["max_err"] for c in wcases),
+        "max_err": max(c["max_err"] for c in wcases),
+        "ms": wbig["kernel_ms"],
+        "plain_ms": wbig["plain_ms"],
+        "bound_ms": wbig["bound_ms"],
+        "bound_by": wbig["bound_by"],
+        "library_ms": None,
     }]}), flush=True)
 
-    # 6. result
+    # 8. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

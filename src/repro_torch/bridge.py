@@ -18,19 +18,27 @@ from typing import Any, Dict, List, Mapping
 import numpy as np
 import torch
 
-from repro_torch.config.base import DENSE, ModelConfig
+from repro_torch.config.base import DENSE, SSM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
 
 
+# per-layer leaves of an RWKV6 block (``repro/models/rwkv6.py`` rwkv_init)
+RWKV_LEAVES = ("ln1", "ln2", "mu_base", "mu", "mix_w1", "mix_w2",
+               "decay_base", "decay_w1", "decay_w2", "u", "wr", "wk", "wv",
+               "wg", "wo", "ln_x", "cmu_k", "cmu_r", "cw_k", "cw_v", "cw_r")
+
+
 def leaf_names(cfg: ModelConfig) -> List[str]:
-    """The reference's leaf path names for a dense ``cfg``."""
-    if cfg.family != DENSE:
+    """The reference's leaf path names for a dense or RWKV6 ``cfg``."""
+    if cfg.family not in (DENSE, SSM):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     names = ["embed/embedding", "final_norm"]
     if not cfg.tie_embeddings:
         names.append("embed/unembed")
+    if cfg.family == SSM:
+        return names + [f"blocks/{n}" for n in RWKV_LEAVES]
     attn = ["wq", "wk", "wv", "wo"]
     if cfg.qkv_bias:
         attn += ["bq", "bk", "bv"]

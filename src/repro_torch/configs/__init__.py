@@ -1,4 +1,5 @@
-"""Architecture registry of the port: the dense ids of ``repro.configs``.
+"""Architecture registry of the port: the dense and RWKV6 ids of the
+reference's ``repro.configs``.
 
 Each module defines ``CONFIG`` with the reference's values;
 ``get_config(arch)`` resolves by id and ``get_tiny_config(arch)`` returns
@@ -17,6 +18,7 @@ _MODULES: Dict[str, str] = {
     "qwen3-4b": "qwen3_4b",
     "qwen3-8b": "qwen3_8b",
     "phi3-medium-14b": "phi3_medium_14b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 # reference arch ids whose family the port does not run yet -> ROADMAP slice
@@ -24,7 +26,6 @@ _NOT_PORTED: Dict[str, str] = {
     "qwen3-moe-30b-a3b": "port slice (c), gmm with MoE",
     "dbrx-132b": "port slice (c), gmm with MoE",
     "jamba-1.5-large-398b": "port slice (d), mamba_scan with the Jamba forward",
-    "rwkv6-3b": "port slice (e), rwkv6_scan with the RWKV6 forward",
     "seamless-m4t-medium": "port slice (f), enc-dec / VLM",
     "qwen2-vl-72b": "port slice (f), enc-dec / VLM",
 }

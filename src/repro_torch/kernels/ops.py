@@ -2,13 +2,16 @@
 
 Counterpart of ``repro/kernels/ops.py``: the model keeps activations as
 [B,S,H,D]; the kernels take [B,H,S,D].  The transposes are the same as
-the reference's, made contiguous because the CUDA kernel reads dense rows.
+the reference's.  The flash kernel reads dense rows, so its inputs are made
+contiguous; the WKV6 kernel reads and writes through strides, so its
+inputs go to it as transposed views, with no copies.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rwkv6_scan as _rw
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -21,3 +24,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = _fa.flash_attention(qt, kt, vt, causal=causal, q_offset=q_offset,
                             block_q=block_q, block_k=block_k)
     return o.transpose(1, 2)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """r,k,v,w: [B,S,H,D]; u: [H,D] -> [B,S,H,D] (model layout)."""
+    tr = lambda t: t.transpose(1, 2)
+    return _rw.rwkv6_scan(tr(r), tr(k), tr(v), tr(w), u).transpose(1, 2)

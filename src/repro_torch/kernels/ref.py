@@ -1,7 +1,8 @@
 """Naive PyTorch oracles for the port's kernels (the correctness ground truth).
 
-Counterpart of ``repro/kernels/ref.py``: full softmax attention, with no
-tiling, so kernel tests compare the tiled forms against plain semantics.
+Counterpart of ``repro/kernels/ref.py``: full softmax attention with no
+tiling, and the strictly sequential WKV6 recurrence, so kernel tests
+compare the tiled and chunked forms against plain semantics.
 """
 from __future__ import annotations
 
@@ -24,3 +25,18 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", w, v.float())
     return o.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Sequential WKV6.  r,k,v,w: [B,H,S,D]; u: [H,D] -> [B,H,S,D] (f32)."""
+    B, H, S, D = r.shape
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    uu = u.float()[..., None]                          # [H,D,1]
+    state = torch.zeros(B, H, D, D, dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(S):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]  # [B,H,Dk,Dv]
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, :, t], state + uu * kv))
+        state = w[:, :, t, :, None] * state + kv
+    return torch.stack(ys, dim=2)

@@ -3,9 +3,12 @@
 Counterpart of ``repro/launch/serve.py``.  The reference publishes its
 weights through the XUFS fabric and restores them before it serves; the
 port has no fabric yet (ROADMAP port slice (a)), so the weights come from
-the port's seeded init.  Prefill runs through the CUDA flash-attention
-kernel (``attention_impl="pallas"``); the launcher serves synthetic
-requests under continuous batching and prints tokens/s with the device.
+the port's seeded init.  The launcher selects the CUDA kernels
+(``attention_impl="pallas"``: dense prefill runs the flash-attention
+kernel; ``scan_impl="pallas"``: the RWKV6 full-sequence forward runs the
+WKV6 kernel, though RWKV6 prefill keeps the chunked path that returns the
+state, as in the reference), serves synthetic requests under continuous
+batching and prints tokens/s with the device.
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ def main() -> None:
     dev = resolve_device(args.device)
     cfg = (get_tiny_config(args.arch) if args.tiny
            else get_config(args.arch)).replace(param_dtype="bfloat16",
-                                               attention_impl="pallas")
+                                               attention_impl="pallas",
+                                               scan_impl="pallas")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = init_params(cfg, gen, dev)

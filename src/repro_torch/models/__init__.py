@@ -1,3 +1,3 @@
 from repro_torch.models.model import (  # noqa: F401
-    init_params, forward, init_cache, prefill, decode_step,
+    init_params, forward, loss_fn, init_cache, prefill, decode_step,
 )

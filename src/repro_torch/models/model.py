@@ -1,29 +1,33 @@
-"""Top-level model API: init / forward / prefill / decode, ``DENSE`` family.
+"""Top-level model API: init / forward / loss / prefill / decode, for the
+``DENSE`` and ``SSM`` (RWKV6) families.
 
 Counterpart of ``repro/models/model.py``.  The reference stacks layer
 parameters and runs ``jax.lax.scan`` over them; here ``p["blocks"]`` is a
-list of per-layer dicts and depth is a Python loop.  The KV cache keeps
-the reference's layout: ``k``/``v`` [L, B, max_len, kv_dim] and a per-slot
-``index`` [B] (int32).  ``loss_fn`` and remat wait for the training slice;
-the other families for their own slices (ROADMAP).
+list of per-layer dicts and depth is a Python loop.  The caches keep the
+reference's layouts: dense ``k``/``v`` [L, B, max_len, kv_dim]; RWKV6
+``tshift``/``cshift`` [L, B, d] and ``wkv`` [L, B, H, D, D] (f32); both
+with a per-slot ``index`` [B] (int32).  Grads and remat wait for the
+training slice; the other families for their own slices (ROADMAP).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.config.base import DENSE, ModelConfig
+from repro_torch.config.base import DENSE, SSM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv6 as RW
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != DENSE:
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in (DENSE, SSM):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; ROADMAP.md lists the "
             "slice that ports it")
@@ -36,13 +40,14 @@ def _require_dense(cfg: ModelConfig) -> None:
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = "cuda") -> Params:
     """Random parameters drawn from ``generator`` (on ``device``'s type)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
     dt = L.torch_dtype(cfg.param_dtype)
+    block_init = RW.rwkv_init if cfg.family == SSM else B.block_init
     return {
         "embed": L.embedding_init(cfg, generator, dev),
         "final_norm": L.rmsnorm_init(cfg.d_model, dt, dev),
-        "blocks": [B.block_init(cfg, generator, dev)
+        "blocks": [block_init(cfg, generator, dev)
                    for _ in range(cfg.num_layers)],
     }
 
@@ -60,17 +65,67 @@ def _logits(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
 # full-sequence forward
 # ---------------------------------------------------------------------------
 
+def _shift(x: torch.Tensor) -> torch.Tensor:
+    """x [B,S,d] shifted right by one token (zeros first)."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def _rwkv_block(cfg: ModelConfig, lp: Params, h: torch.Tensor,
+                return_state: bool = False):
+    """One RWKV6 layer over the full sequence; with ``return_state`` also
+    the layer's decode cache entry (tshift, cshift, wkv)."""
+    xn = L.rmsnorm(h, lp["ln1"], cfg.rms_eps)
+    tm = RW.rwkv_time_mix(cfg, lp, xn, _shift(xn), return_state=return_state)
+    if return_state:
+        tm, st = tm
+    h = h + tm
+    xn2 = L.rmsnorm(h, lp["ln2"], cfg.rms_eps)
+    h = h + RW.rwkv_channel_mix(cfg, lp, xn2, _shift(xn2))
+    if not return_state:
+        return h
+    return h, {"tshift": xn[:, -1, :], "cshift": xn2[:, -1, :], "wkv": st}
+
+
 def forward(cfg: ModelConfig, p: Params, batch: Batch,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B,S,V], aux_loss)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     positions = batch["positions"]
     h = L.embed_tokens(cfg, p["embed"], batch["tokens"])
     aux = torch.zeros((), device=h.device)
     for lp in p["blocks"]:
-        h, a = B.block_apply(cfg, lp, h, positions)
-        aux = aux + a
+        if cfg.family == SSM:
+            h = _rwkv_block(cfg, lp, h)
+        else:
+            h, a = B.block_apply(cfg, lp, h, positions)
+            aux = aux + a
     return _logits(cfg, p, h), aux
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+Z_LOSS_COEF = 1e-4
+
+
+def loss_fn(cfg: ModelConfig, p: Params, batch: Batch,
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy + z-loss + aux; targets < 0 are masked."""
+    logits, aux = forward(cfg, p, batch)
+    targets = batch["targets"]
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    mask = (targets >= 0).float()
+    tgt = torch.where(targets >= 0, targets, 0).long()
+    ll = torch.gather(lf, -1, tgt[..., None])[..., 0]
+    nll = (lse - ll) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = nll.sum() / denom
+    z = Z_LOSS_COEF * (lse.square() * mask).sum() / denom
+    total = ce + z + aux
+    return total, {"loss": total, "ce": ce, "aux": aux, "z": z,
+                   "tokens": mask.sum()}
 
 
 # ---------------------------------------------------------------------------
@@ -79,26 +134,45 @@ def forward(cfg: ModelConfig, p: Params, batch: Batch,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = "cuda") -> Params:
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
+    index = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if cfg.family == SSM:
+        one = RW.rwkv_cache_init(cfg, batch, dev)
+        c = {k: torch.zeros((cfg.num_layers,) + tuple(v.shape), dtype=v.dtype,
+                            device=dev) for k, v in one.items()}
+        c["index"] = index
+        return c
     dt = L.torch_dtype(cfg.dtype)
     shape = (cfg.num_layers, batch, max_len, cfg.kv_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev),
-            "index": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+            "index": index}
 
 
 def prefill(cfg: ModelConfig, p: Params, batch: Batch, max_len: int,
             ) -> Tuple[torch.Tensor, Params]:
-    """Run the full prompt; returns (last-position logits, filled cache)."""
-    _require_dense(cfg)
+    """Run the full prompt; returns (last-position logits, filled cache).
+
+    RWKV6 prefill takes the chunked path with the final state
+    (``return_state``), never the scan kernel, as in the reference; its
+    cache has no sequence axis, so ``max_len`` does not bound it.
+    """
+    _require_ported(cfg)
     positions = batch["positions"]
     h = L.embed_tokens(cfg, p["embed"], batch["tokens"])
-    kvs = []
-    for lp in p["blocks"]:
-        h, kv, _ = B.block_prefill(cfg, lp, h, positions)
-        kvs.append(kv)
-    cache = _embed_cache(cfg, kvs, h.shape[0], max_len)
+    if cfg.family == SSM:
+        ents = []
+        for lp in p["blocks"]:
+            h, ent = _rwkv_block(cfg, lp, h, return_state=True)
+            ents.append(ent)
+        cache = {k: torch.stack([e[k] for e in ents]) for k in ents[0]}
+    else:
+        kvs = []
+        for lp in p["blocks"]:
+            h, kv, _ = B.block_prefill(cfg, lp, h, positions)
+            kvs.append(kv)
+        cache = _embed_cache(cfg, kvs, h.shape[0], max_len)
     Bsz, S = batch["tokens"].shape
     cache["index"] = torch.full((Bsz,), S, dtype=torch.int32, device=h.device)
     return _logits(cfg, p, h[:, -1:, :]), cache
@@ -125,17 +199,29 @@ def decode_step(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
                 cache: Params) -> Tuple[torch.Tensor, Params]:
     """One-token decode.  tokens: [B,1] -> (logits [B,1,V], new cache).
 
-    The k/v tensors of ``cache`` are updated in place and shared by the
-    returned cache; its ``index`` is a new tensor, one higher for every
-    slot, active or not, as in the reference.
+    The state tensors of ``cache`` (k/v, or tshift/cshift/wkv) are
+    updated in place and shared by the returned cache; its ``index`` is a
+    new tensor, one higher for every slot, active or not, as in the
+    reference.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     index = cache["index"]
     h = L.embed_tokens(cfg, p["embed"], tokens)
     pos = index[:, None]
     for i, lp in enumerate(p["blocks"]):
-        h, _, _ = B.block_decode(cfg, lp, h, pos, cache["k"][i],
-                                 cache["v"][i], index)
+        if cfg.family != SSM:
+            h, _, _ = B.block_decode(cfg, lp, h, pos, cache["k"][i],
+                                     cache["v"][i], index)
+            continue
+        ce = {k: cache[k][i] for k in ("tshift", "cshift", "wkv")}
+        xn = L.rmsnorm(h, lp["ln1"], cfg.rms_eps)
+        tm, st = RW.rwkv_decode_time(cfg, lp, xn, ce)
+        h = h + tm
+        xn2 = L.rmsnorm(h, lp["ln2"], cfg.rms_eps)
+        cm, st["cshift"] = RW.rwkv_decode_channel(cfg, lp, xn2, ce["cshift"])
+        h = h + cm
+        for k, v in st.items():
+            ce[k].copy_(v)
     new_cache = dict(cache)
     new_cache["index"] = index + 1
     return _logits(cfg, p, h), new_cache

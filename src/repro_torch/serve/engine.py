@@ -101,7 +101,9 @@ class ServeEngine:
     def _splice_cache(self, slot: int, cache1: Any) -> None:
         """Overwrite slot ``slot`` of the pool with a one-request cache.
 
-        k/v [L, B, max_len, kv] along axis 1, ``index`` [B] along axis 0.
+        Every state tensor keeps batch on axis 1 (dense k/v [L, B, max_len,
+        kv]; RWKV6 tshift/cshift [L, B, d] and wkv [L, B, H, D, D]);
+        ``index`` [B] splices along axis 0.
         """
         for k, pool in self.cache.items():
             axis = 0 if k == "index" else 1

@@ -1,4 +1,5 @@
-"""The CUDA flash-attention kernel against its plain version, on the card.
+"""The CUDA kernels (flash attention, WKV6 scan) against their plain
+versions, on the card.
 
 Skips without a CUDA card.  On the card (no JAX needed):
 
@@ -10,6 +11,8 @@ import pytest
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import rwkv6_scan as trw
 
 
 def _inputs(seed, dtype, *shapes):
@@ -42,3 +45,61 @@ def test_cuda_kernel_matches_plain(B, Hq, Hkv, Sq, Skv, D, causal, q_offset,
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,S,D,decay", [
+    (2, 3, 128, 64, None),        # the JAX sweep's shape
+    (1, 2, 64, 32, None),         # D = 32
+    (1, 40, 777, 64, None),       # ragged, rwkv6-3b heads
+    (2, 4, 100, 32, None),        # ragged, two chunks
+    (1, 2, 1, 64, None),          # one token
+    (1, 1, 256, 64, 1e-6),        # strong decay
+])
+def test_rwkv6_scan_kernel_matches_plain(B, H, S, D, decay):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator().manual_seed(S * D + H)
+    r, k, v = (torch.randn(B, H, S, D, generator=gen) for _ in range(3))
+    if decay is None:
+        w = torch.exp(-torch.exp(torch.randn(B, H, S, D, generator=gen)))
+    else:
+        w = torch.full((B, H, S, D), decay)
+    u = torch.randn(H, D, generator=gen)
+    x = [t.cuda() for t in (r, k, v, w, u)]
+    launches = trw.rwkv6_scan.launches
+    got = trw.rwkv6_scan(*x)
+    torch.cuda.synchronize()
+    assert trw.rwkv6_scan.launches == launches + 1
+    want = trw.rwkv6_scan_plain(*x).cpu().numpy()
+    got = got.cpu().numpy()
+    assert not np.isnan(got).any()
+    if decay is None:      # scale-normalised, as tests/test_kernels.py
+        scale = float(np.abs(want).max()) + 1.0
+        np.testing.assert_allclose(got / scale, want / scale, rtol=2e-4,
+                                   atol=2e-4)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,D", [(2, 100, 4, 64), (1, 777, 40, 64),
+                                     (2, 128, 3, 32)])
+def test_rwkv6_scan_kernel_model_layout(B, S, H, D):
+    """ops.rwkv6_scan hands the kernel [B,S,H,D] tensors as strided views."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator().manual_seed(S + H)
+    r, k, v = (torch.randn(B, S, H, D, generator=gen).cuda() for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(B, S, H, D, generator=gen))).cuda()
+    u = torch.randn(H, D, generator=gen).cuda()
+    launches = trw.rwkv6_scan.launches
+    got = tops.rwkv6_scan(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert trw.rwkv6_scan.launches == launches + 1
+    assert got.shape == (B, S, H, D) and got.is_contiguous()
+    tr = lambda t: t.transpose(1, 2).contiguous()
+    want = trw.rwkv6_scan_plain(tr(r), tr(k), tr(v), tr(w), u).transpose(1, 2)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    scale = float(np.abs(want).max()) + 1.0
+    np.testing.assert_allclose(got / scale, want / scale, rtol=2e-4, atol=2e-4)
