@@ -5,9 +5,10 @@
 
 Phases, each of which raises on failure (exit code != 0):
   1. card    - requires CUDA; prints the card's name and power limit;
-  2. build   - compiles every kernel (flash_attention.cu, rwkv6_scan.cu)
-               from the sources in this checkout, one nvcc each, in
-               parallel (sm_90a); prints build times and ptxas registers;
+  2. build   - compiles every kernel (flash_attention.cu, rwkv6_scan.cu,
+               mamba_scan.cu) from the sources in this checkout, one nvcc
+               each, in parallel (sm_90a); prints build times and ptxas
+               registers;
   3. kernel  - holds each kernel against its plain PyTorch version at the
                main paths' shapes and times kernel, plain version, the
                library call where one exists (a yardstick only; the port
@@ -28,6 +29,19 @@ Phases, each of which raises on failure (exit code != 0):
                tokens; every request completes with finite logits; prefill
                takes the state-returning chunked path, so the kernel runs
                0 times, as in the reference;
+  7. forward - full-width jamba-1.5-large-398b without experts (moe=None;
+               16 of its 72 layers, bf16, seed 0, scan_impl="pallas") over
+               4 x 2048 seeded tokens through forward and loss_fn: 14
+               selective-scan and 2 flash launches each, finite logits and
+               loss, the bf16 distance to the plain scan path printed;
+  8. serve   - the same model behind ServeEngine with the qwen3-8b traffic:
+               2 flash launches a prefill and no scan launch (prefill takes
+               the state-returning scan), every admitted slot's cache equal
+               bit for bit to its one-request prefill cache;
+  9. f32     - the same model at 8 layers in f32 (16 do not fit): the
+               kernel path against the plain scan path within 1e-3 of the
+               logits' scale, and prefill + decode against forward;
+(every serving run checks each admission's splice of every cache entry)
 then prints a JSON line of kernel numbers and, last, the JSON result line.
 Imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -51,6 +65,11 @@ PEAK_BYTES = 3.35e12
 ARCH = "qwen3-8b"
 RWKV_ARCH = "rwkv6-3b"
 RWKV_BATCH, RWKV_SEQ = 4, 2048
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA_LAYERS = 16          # 2 superblocks: 33.8 GB of bf16 weights
+JAMBA_F32_LAYERS = 8       # 1 superblock in f32: ~36 GB
+SFU_PER_CLOCK_PER_SM = 16  # exponentials (special-function units), sm_90
+N_SMS = 132
 PROMPT_LENS = (128, 256, 512, 777, 1024, 1500, 2048, 64)
 MAX_NEW = 32
 SLOTS = 4
@@ -58,11 +77,19 @@ MAX_LEN = 4096
 SEED = 0
 
 
-def card_line() -> str:
+def card_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it ("1980 MHz")."""
+    value, unit = card_line("clocks.max.sm").split()
+    if unit != "MHz":
+        raise ValueError(f"unexpected clock unit {unit!r}")
+    return float(value) * 1e6
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -108,6 +135,9 @@ def kernel_cases(torch, fa):
                       causal=False, q_offset=0, dtype="bfloat16"))
     cases.append(dict(B=2, Hq=4, Hkv=2, Sq=256, Skv=256, D=64, causal=True,
                       q_offset=0, dtype="float32"))
+    # jamba's attention layer in its forward: 64 query heads, 8 kv heads
+    cases.append(dict(B=4, Hq=64, Hkv=8, Sq=2048, Skv=2048, D=128,
+                      causal=True, q_offset=0, dtype="bfloat16"))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     results = []
@@ -197,9 +227,9 @@ def profile_call(torch, fn, label: str):
     return res
 
 
-def profile_ticks(torch, cfg, params, prompts):
+def profile_ticks(torch, cfg, params, prompts, prefill_len: int = 2048):
     """Where one engine tick's time goes: a decode tick of 4 slots, and a
-    tick that also prefills the 2048-token prompt."""
+    tick that also prefills the ``prefill_len``-token prompt."""
     from repro_torch.serve import engine as engine_mod
     peng = engine_mod.ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
                                   seed=SEED, device="cuda")
@@ -210,10 +240,11 @@ def profile_ticks(torch, cfg, params, prompts):
     name = cfg.name
     prof = {"decode_tick": profile_call(torch, peng.step,
                                         f"{name} decode_tick")}
-    peng.add_request(engine_mod.Request(rid=SLOTS, max_new_tokens=2,
-                                        prompt=prompts[PROMPT_LENS.index(2048)]))
-    prof["prefill_2048_tick"] = profile_call(torch, peng.step,
-                                             f"{name} prefill_2048_tick")
+    peng.add_request(engine_mod.Request(
+        rid=SLOTS, max_new_tokens=2,
+        prompt=prompts[PROMPT_LENS.index(prefill_len)]))
+    label = f"prefill_{prefill_len}_tick"
+    prof[label] = profile_call(torch, peng.step, f"{name} {label}")
     return prof
 
 
@@ -324,6 +355,21 @@ def drive_engine(torch, cfg, params, prompts):
         eng = engine_mod.ServeEngine(cfg, params, slots=SLOTS,
                                      max_len=MAX_LEN, seed=SEED,
                                      device="cuda")
+        real_splice = eng._splice_cache
+
+        def checked_splice(slot, cache1):
+            # every entry of the slot, along its own batch axis, must be
+            # the one-request prefill cache bit for bit
+            real_splice(slot, cache1)
+            for name, pool in eng.cache.items():
+                got = pool.narrow(eng.batch_axes[name], slot, 1)
+                if not torch.equal(got, cache1[name].to(pool.dtype)):
+                    raise AssertionError(f"splice of {name!r} into slot "
+                                         f"{slot} differs from its prefill")
+            spliced.append(slot)
+
+        spliced = []
+        eng._splice_cache = checked_splice
         for i, pr in enumerate(prompts):
             eng.add_request(engine_mod.Request(rid=i, prompt=pr,
                                                max_new_tokens=MAX_NEW))
@@ -350,6 +396,9 @@ def drive_engine(torch, cfg, params, prompts):
                                  f"{len(req.output)} of {MAX_NEW} tokens")
     if not all(bool(ok) for ok in decode_logits_ok):
         raise AssertionError("non-finite decode logits")
+    if len(spliced) != len(prompts):
+        raise AssertionError(f"{len(spliced)} splices for {len(prompts)} "
+                             "requests")
     # output tokens: the decode ticks' plus the first token of each prefill
     tokens = eng.tokens_generated + len(prompts)
     return eng, dict(requests=len(prompts), slots=SLOTS, max_len=MAX_LEN,
@@ -359,6 +408,7 @@ def drive_engine(torch, cfg, params, prompts):
                      decode_ms_per_tick_mean=sum(tick_ms) / len(tick_ms),
                      decode_ms_per_tick_median=sorted(tick_ms)[
                          len(tick_ms) // 2],
+                     splices_checked=len(spliced),
                      tokens=tokens, serve_s=serve_s,
                      tokens_per_s=tokens / serve_s,
                      max_memory_allocated_gb=peak_gb)
@@ -371,9 +421,9 @@ def seeded_params(torch, cfg):
     gen.manual_seed(SEED)
     params = init_params(cfg, gen, "cuda")
     torch.cuda.synchronize()
-    print(f"{cfg.name}: {n_params(params) / 1e9:.3f} B params (bf16, seed "
-          f"{SEED}) initialised in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"{cfg.name}: {cfg.num_layers} layers, {n_params(params) / 1e9:.3f} "
+          f"B params ({cfg.param_dtype}, seed {SEED}) initialised in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return params
 
 
@@ -461,16 +511,11 @@ def scaled_err(got, want) -> float:
 
 def rwkv_forward(torch, card: str, cfg, params):
     """Full-width rwkv6-3b forward and loss through the WKV6 kernel."""
-    import numpy as np
     from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.models import decode_step, forward, loss_fn, prefill
 
     B, S = RWKV_BATCH, RWKV_SEQ
-    rng = np.random.RandomState(SEED)
-    seq = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(B, S + 1)))
-    seq = seq.to("cuda")
-    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:],
-             "positions": torch.arange(S, device="cuda")[None].expand(B, S)}
+    batch = scoring_batch(torch, cfg, B, S)
     forward(cfg, params, batch)                       # warm-up
     torch.cuda.synchronize()
 
@@ -523,8 +568,8 @@ def rwkv_forward(torch, card: str, cfg, params):
     # prefill(776 tokens) + decode(the 777th) against forward(777)[-1], in
     # f32: the state-returning chunked path (a ragged last chunk) and the
     # one-token recurrence against the kernel path
-    toks = seq[:1, :777]
-    pos = torch.arange(777, device="cuda")[None]
+    toks = batch["tokens"][:1, :777]
+    pos = batch["positions"][:1, :777]
     full = forward(c32, p32, {"tokens": toks, "positions": pos})[0][:, -1]
     _, cache = prefill(c32, p32, {"tokens": toks[:, :-1],
                                   "positions": pos[:, :-1]}, max_len=MAX_LEN)
@@ -561,6 +606,197 @@ def rwkv_serve(torch, card: str, cfg, params):
     return res
 
 
+def mamba_bound(B, S, di, N, clock_hz):
+    """(bound ms, what bounds it, counts) of the selective scan: dt and x
+    read and y written (and b, c, A read), against its B*S*di*N
+    exponentials on the special-function units (16 a clock per SM at
+    ``clock_hz``) and its ~6 f32 FLOPs per (b, s, d, n) at peak.  The
+    exponentials are inherent: A is a learned [di, N] matrix."""
+    nbytes = 4 * (3 * B * S * di + 2 * B * S * N + di * N)
+    exps = B * S * di * N
+    flops = 6 * exps
+    times = {"bytes": nbytes / PEAK_BYTES,
+             "exponentials": exps / (SFU_PER_CLOCK_PER_SM * N_SMS * clock_hz),
+             "f32_flops": flops / PEAK_FLOPS["float32"]}
+    by = max(times, key=times.get)
+    return (times[by] * 1e3, "bytes" if by == "bytes" else "operations",
+            dict(bytes=nbytes, exponentials=exps, flops=flops, bound_set_by=by,
+                 **{f"{k}_ms": v * 1e3 for k, v in times.items()}))
+
+
+def mamba_cases(torch, mb, clock_hz):
+    """Selective-scan kernel vs plain version on the card; one dict per
+    case.  Scale-normalised error within 1e-4, as tests/test_kernels.py."""
+    import torch.nn.functional as F
+    cases = [dict(B=4, S=2048, di=16384, N=16, dt=None),   # jamba forward
+             dict(B=1, S=2048, di=16384, N=16, dt=None),
+             dict(B=1, S=777, di=16384, N=16, dt=None),    # ragged S
+             dict(B=1, S=64, di=32, N=8, dt=None),         # the JAX sweep
+             dict(B=2, S=128, di=64, N=16, dt=None),
+             dict(B=1, S=256, di=128, N=16, dt=None),
+             dict(B=1, S=2048, di=16384, N=16, dt=30.0),   # exp underflows
+             dict(B=1, S=2048, di=16384, N=16, dt=1e-3)]   # weak decay
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    results = []
+    for c in cases:
+        B, S, di, N = c["B"], c["S"], c["di"], c["N"]
+
+        def rnd(*sh):
+            return torch.randn(*sh, generator=gen, device="cuda")
+
+        A = -torch.exp(rnd(di, N))
+        dt = (F.softplus(rnd(B, S, di)) if c["dt"] is None
+              else torch.full((B, S, di), c["dt"], device="cuda"))
+        b, cc, x = rnd(B, S, N), rnd(B, S, N), rnd(B, S, di)
+        args = (A, dt, b, cc, x)
+        out = mb.mamba_scan(*args)
+        want = mb.mamba_scan_plain(*args)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"non-finite kernel output: {c}")
+        max_err = float((out - want).abs().max())
+        err = scaled_err(out, want)
+        if err > 1e-4:
+            raise AssertionError(f"kernel disagrees with plain version: {c}, "
+                                 f"scaled error {err} > 1e-4")
+        kernel_ms = cuda_ms(torch, lambda: mb.mamba_scan(*args), iters=20)
+        plain_ms = cuda_ms(torch, lambda: mb.mamba_scan_plain(*args),
+                           iters=2, warmup=1)
+        bound_ms, bound_by, work = mamba_bound(B, S, di, N, clock_hz)
+        res = dict(c, max_err=max_err, checked_err=err, tol=1e-4,
+                   kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=bound_ms, bound_by=bound_by, **work)
+        results.append(res)
+        print("kernel case mamba_scan " + json.dumps(res), flush=True)
+    return results
+
+
+def scoring_batch(torch, cfg, B, S):
+    """B seeded sequences of S tokens with next-token targets."""
+    import numpy as np
+    rng = np.random.RandomState(SEED)
+    seq = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(B, S + 1)))
+    seq = seq.to("cuda")
+    return {"tokens": seq[:, :-1], "targets": seq[:, 1:],
+            "positions": torch.arange(S, device="cuda")[None].expand(B, S)}
+
+
+def jamba_forward(torch, card: str, cfg, params):
+    """Full-width jamba (no experts) forward and loss through the
+    selective-scan and flash kernels, at JAMBA_LAYERS layers."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as mb
+    from repro_torch.models import forward, loss_fn
+
+    B, S = RWKV_BATCH, RWKV_SEQ
+    nb = cfg.num_layers // cfg.hybrid_period
+    n_mamba = cfg.num_layers - nb
+    batch = scoring_batch(torch, cfg, B, S)
+    forward(cfg, params, batch)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    mb.mamba_scan.launches = fa.flash_attention.launches = 0
+    t = time.perf_counter()
+    logits, _ = forward(cfg, params, batch)
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t) * 1e3
+    launches = (mb.mamba_scan.launches, fa.flash_attention.launches)
+    if launches != (n_mamba, nb):
+        raise AssertionError(f"one forward launched (scan, flash) = "
+                             f"{launches}, want {(n_mamba, nb)}")
+    if tuple(logits.shape) != (B, S, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"bad forward logits {tuple(logits.shape)}")
+    t = time.perf_counter()
+    loss, metrics = loss_fn(cfg, params, batch)
+    torch.cuda.synchronize()
+    loss_ms = (time.perf_counter() - t) * 1e3
+    if (mb.mamba_scan.launches, fa.flash_attention.launches) != \
+            (2 * n_mamba, 2 * nb):
+        raise AssertionError("loss_fn did not run each kernel once per layer")
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"non-finite loss {float(loss)}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_call(torch, lambda: forward(cfg, params, batch),
+                        f"{cfg.name} forward")
+    # the plain scan path in bf16, for the distance only (the check is in
+    # f32, at JAMBA_F32_LAYERS layers)
+    lo_x = forward(cfg.replace(scan_impl="xla"), params, batch)[0]
+    bf16_err = float((logits.float() - lo_x.float()).abs().max())
+    res = dict(card=card, arch=cfg.name, layers=cfg.num_layers,
+               params=n_params(params), batch=B, seq=S, forward_ms=forward_ms,
+               tokens_per_s=B * S / forward_ms * 1e3, loss_fn_ms=loss_ms,
+               loss=float(loss), ce=float(metrics["ce"]),
+               scan_launches=launches[0], flash_launches=launches[1],
+               max_memory_allocated_gb=peak_gb,
+               bf16_kernel_vs_plain_path_max_err=bf16_err,
+               max_abs_logit=float(logits.float().abs().max()), profile=prof)
+    print("forward " + json.dumps(res), flush=True)
+    return res
+
+
+def jamba_serve(torch, card: str, cfg, params):
+    """Jamba behind ServeEngine: the flash kernel runs in each prefill, the
+    scan kernel not at all (prefill needs the final state)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as mb
+    prompts = prompts_for(cfg)
+    nb = cfg.num_layers // cfg.hybrid_period
+    mb.mamba_scan.launches = fa.flash_attention.launches = 0
+    _, res = drive_engine(torch, cfg, params, prompts)
+    launches = (mb.mamba_scan.launches, fa.flash_attention.launches)
+    if launches != (0, nb * len(prompts)):
+        raise AssertionError(f"serving launched (scan, flash) = {launches}, "
+                             f"want {(0, nb * len(prompts))}")
+    # a 2048-token prefill makes ~200k launches, too many to trace whole
+    prof = profile_ticks(torch, cfg, params, prompts, prefill_len=512)
+    res = dict(card=card, arch=cfg.name, layers=cfg.num_layers, **res,
+               scan_launches=0, flash_launches=launches[1], profile=prof)
+    print("serve " + json.dumps(res), flush=True)
+    return res
+
+
+def jamba_f32(torch, card: str, cfg):
+    """At JAMBA_F32_LAYERS layers in f32: the kernel path against the plain
+    scan path (within 1e-3 of the logits' scale), and prefill(S-1) +
+    decode(1) against forward(S) on a 777-token prompt."""
+    from repro_torch.kernels import mamba_scan as mb
+    from repro_torch.models import decode_step, forward, prefill
+    c32 = cfg.replace(num_layers=JAMBA_F32_LAYERS, dtype="float32",
+                      param_dtype="float32")
+    p32 = seeded_params(torch, c32)
+    batch = scoring_batch(torch, c32, RWKV_BATCH, RWKV_SEQ)
+    n0 = mb.mamba_scan.launches
+    lo_k = forward(c32, p32, batch)[0]
+    if mb.mamba_scan.launches != n0 + JAMBA_F32_LAYERS - 1:
+        raise AssertionError("the f32 forward did not run the f32 kernel")
+    lo_x = forward(c32.replace(scan_impl="xla"), p32, batch)[0]
+    parity = scaled_err(lo_k, lo_x)
+    if parity > 1e-3:
+        raise AssertionError(f"f32 logits: kernel path vs plain path scaled "
+                             f"error {parity} beyond 1e-3")
+    scale = float(lo_x.abs().max())
+    del lo_k, lo_x
+    toks = batch["tokens"][:1, :777]
+    pos = batch["positions"][:1, :777]
+    full = forward(c32, p32, {"tokens": toks, "positions": pos})[0][:, -1]
+    _, cache = prefill(c32, p32, {"tokens": toks[:, :-1],
+                                  "positions": pos[:, :-1]}, max_len=MAX_LEN)
+    dec = decode_step(c32, p32, toks[:, -1:], cache)[0][:, 0]
+    decode_err = scaled_err(dec, full)
+    if decode_err > 1e-3:
+        raise AssertionError(f"f32 prefill + decode vs forward: scaled error "
+                             f"{decode_err} beyond 1e-3")
+    res = dict(card=card, arch=c32.name, layers=JAMBA_F32_LAYERS,
+               params=n_params(p32), parity_f32_scaled_err=parity,
+               f32_max_abs_logit=scale,
+               decode_vs_forward_f32_scaled_err=decode_err)
+    print("f32 " + json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -588,13 +824,14 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as mb
     from repro_torch.kernels import rwkv6_scan as rw
-    names = ("flash_attention", "rwkv6_scan")
+    names = ("flash_attention", "rwkv6_scan", "mamba_scan")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.load, names))
-    print(f"build: both kernels loaded in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"build: {len(names)} kernels loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name in names:
         seconds, log = _build.build_report(name)
         print(f"build: {name}.cu in {seconds:.1f} s", flush=True)
@@ -606,6 +843,9 @@ def main() -> int:
     phase("kernel")
     cases = kernel_cases(torch, fa)
     wcases = wkv_cases(torch, rw)
+    clock_hz = max_sm_clock_hz()
+    print(f"max SM clock {clock_hz / 1e6:.0f} MHz", flush=True)
+    mcases = mamba_cases(torch, mb, clock_hz)
 
     # 4. qwen3-8b serving through the flash kernel
     phase("serve qwen3-8b")
@@ -627,12 +867,36 @@ def main() -> int:
         phase("serve rwkv6-3b")
         rwkv_serve(torch, card, cfg, params)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 7. kernel line: each kernel at its main path's largest shape
+    # 7.-9. jamba without experts: forward and loss through the selective
+    # scan and flash kernels, serving, then the f32 check at 8 layers
+    cfg = get_config(JAMBA_ARCH).replace(
+        moe=None, num_layers=JAMBA_LAYERS, param_dtype="bfloat16",
+        attention_impl="pallas", scan_impl="pallas")
+    params = seeded_params(torch, cfg)
+    with torch.inference_mode():
+        phase(f"forward {JAMBA_ARCH}")
+        jfwd = jamba_forward(torch, card, cfg, params)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(f"serve {JAMBA_ARCH}")
+        jamba_serve(torch, card, cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(f"f32 {JAMBA_ARCH}")
+        jamba_f32(torch, card, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10. kernel line: each kernel at its main path's largest shape
     phase("done")
     big = next(c for c in cases if c["Sq"] == 2048)
     wbig = next(c for c in wcases if c["B"] == RWKV_BATCH
                 and c["S"] == RWKV_SEQ)
+    mbig = mcases[0]    # (4, 2048, 16384, 16), the jamba forward's shape
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -661,9 +925,23 @@ def main() -> int:
         "bound_ms": wbig["bound_ms"],
         "bound_by": wbig["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "mamba_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:24",
+        "tpu_kernel": "kernels/mamba_scan.py:_mamba_kernel",
+        "launches": jfwd["scan_launches"],
+        "max_abs_err": max(c["max_err"] for c in mcases),
+        "max_err": max(c["max_err"] for c in mcases),
+        "ms": mbig["kernel_ms"],
+        "plain_ms": mbig["plain_ms"],
+        "bound_ms": mbig["bound_ms"],
+        "bound_by": mbig["bound_by"],
+        "library_ms": None,
     }]}), flush=True)
 
-    # 8. result
+    # 11. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,7 +5,12 @@ carry a stacked leading layer axis (``repro/models/model.py``
 ``_stack_init``); its checkpoints name each leaf by the ``/``-joined dict
 path (``repro/checkpoint/ckpt.py`` ``_path_str``: ``blocks/attn/wq``,
 ``embed/embedding``, ``final_norm``).  The port keeps the same names with
-``blocks`` as a list of per-layer dicts.  ``params_from_numpy`` takes the
+``blocks`` as a list of per-layer dicts.  The hybrid family stacks
+superblocks, and inside each its Mamba and MLP layers on a second axis
+(``blocks/mamba/in_proj`` is [nb, n_mamba, ...]); the port keeps those
+layers as lists of dicts in each superblock (``blocks[i]["mamba"][j]``)
+and ``blocks/ln_mix``/``ln_ffn`` as [period, d] tensors.
+``params_from_numpy`` takes the
 reference's tree as numpy arrays, nested or already flat by path name;
 ``params_to_numpy`` gives it back.  bf16 travels as a 16-bit view, because
 ``torch.from_numpy`` does not take numpy's (``ml_dtypes``) bfloat16.
@@ -18,8 +23,9 @@ from typing import Any, Dict, List, Mapping
 import numpy as np
 import torch
 
-from repro_torch.config.base import DENSE, SSM, ModelConfig
+from repro_torch.config.base import DENSE, HYBRID, SSM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.hybrid import n_mamba
 
 Params = Dict[str, Any]
 
@@ -28,11 +34,17 @@ Params = Dict[str, Any]
 RWKV_LEAVES = ("ln1", "ln2", "mu_base", "mu", "mix_w1", "mix_w2",
                "decay_base", "decay_w1", "decay_w2", "u", "wr", "wk", "wv",
                "wg", "wo", "ln_x", "cmu_k", "cmu_r", "cw_k", "cw_v", "cw_r")
+# per-layer leaves of a Mamba layer (``repro/models/mamba.py`` mamba_init)
+MAMBA_LEAVES = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
+                "dt_bias", "A_log", "D", "out_proj", "dt_norm", "b_norm",
+                "c_norm")
+MLP_LEAVES = ("wi_gate", "wi_up", "wo")
 
 
 def leaf_names(cfg: ModelConfig) -> List[str]:
-    """The reference's leaf path names for a dense or RWKV6 ``cfg``."""
-    if cfg.family not in (DENSE, SSM):
+    """The reference's leaf path names for a dense, RWKV6 or hybrid
+    ``cfg``."""
+    if cfg.family not in (DENSE, SSM, HYBRID):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     names = ["embed/embedding", "final_norm"]
     if not cfg.tie_embeddings:
@@ -44,10 +56,27 @@ def leaf_names(cfg: ModelConfig) -> List[str]:
         attn += ["bq", "bk", "bv"]
     if cfg.qk_norm:
         attn += ["q_norm", "k_norm"]
-    names += ["blocks/ln1", "blocks/ln2"]
+    if cfg.family == HYBRID:
+        names += ["blocks/ln_mix", "blocks/ln_ffn"]
+        names += [f"blocks/mamba/{n}" for n in MAMBA_LEAVES]
+    else:
+        names += ["blocks/ln1", "blocks/ln2"]
     names += [f"blocks/attn/{n}" for n in attn]
-    names += [f"blocks/mlp/{n}" for n in ("wi_gate", "wi_up", "wo")]
+    names += [f"blocks/mlp/{n}" for n in MLP_LEAVES]
     return names
+
+
+def _sublayers(cfg: ModelConfig) -> Dict[str, int]:
+    """Superblock entries kept as per-layer lists -> their length."""
+    if cfg.family != HYBRID:
+        return {}
+    return {"mamba": n_mamba(cfg), "mlp": cfg.hybrid_period}
+
+
+def _n_blocks(cfg: ModelConfig) -> int:
+    if cfg.family == HYBRID:
+        return cfg.num_layers // cfg.hybrid_period
+    return cfg.num_layers
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -101,18 +130,29 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
     if missing or extra:
         raise KeyError(f"parameter tree does not match {cfg.name}: "
                        f"missing {missing}, unexpected {extra}")
-    p: Params = {"blocks": [{} for _ in range(cfg.num_layers)]}
+    nb, subs = _n_blocks(cfg), _sublayers(cfg)
+    p: Params = {"blocks": [{} for _ in range(nb)]}
     for name in want:
         t = _to_torch(flat[name], dev)
         head, _, rest = name.partition("/")
         if head != "blocks":
             _set(p, name, t)
             continue
-        if t.shape[0] != cfg.num_layers:
-            raise ValueError(f"{name}: leading axis {t.shape[0]} is not "
-                             f"num_layers={cfg.num_layers}")
+        if t.shape[0] != nb:
+            raise ValueError(f"{name}: leading axis {t.shape[0]} is not the "
+                             f"{nb} stacked blocks of num_layers="
+                             f"{cfg.num_layers}")
+        sub, _, leaf = rest.partition("/")
+        if sub in subs and t.shape[1] != subs[sub]:
+            raise ValueError(f"{name}: second axis {t.shape[1]} is not the "
+                             f"{subs[sub]} {sub} layers of a superblock")
         for i, block in enumerate(p["blocks"]):
-            _set(block, rest, t[i])
+            if sub in subs:
+                layers = block.setdefault(sub, [{} for _ in range(subs[sub])])
+                for j, lp in enumerate(layers):
+                    lp[leaf] = t[i, j]
+            else:
+                _set(block, rest, t[i])
     return p
 
 
@@ -120,17 +160,21 @@ def params_to_numpy(cfg: ModelConfig, params: Params) -> Params:
     """The port's params -> the reference's nested tree of numpy arrays."""
     out: Params = {}
     for name in leaf_names(cfg):
-        *parents, leaf = name.split("/")
-        if parents and parents[0] == "blocks":
-            per_layer = []
-            for block in params["blocks"]:
-                for key in parents[1:]:
-                    block = block[key]
-                per_layer.append(block[leaf])
-            _set(out, name, _to_numpy(torch.stack(per_layer)))
+        head, _, rest = name.partition("/")
+        if head == "blocks":
+            t = torch.stack([_get(block, rest) for block in params["blocks"]])
         else:
-            node = params
-            for key in parents:
-                node = node[key]
-            _set(out, name, _to_numpy(node[leaf]))
+            t = _get(params, name)
+        _set(out, name, _to_numpy(t))
     return out
+
+
+def _get(tree: Params, path: str) -> torch.Tensor:
+    """The leaf at ``path``; a list of per-layer dicts on the way (a
+    superblock's layers) gives the leaf of each, stacked."""
+    *parents, leaf = path.split("/")
+    for key in parents:
+        tree = tree[key]
+    if isinstance(tree, list):
+        return torch.stack([lp[leaf] for lp in tree])
+    return tree[leaf]

@@ -1,5 +1,5 @@
-"""Architecture registry of the port: the dense and RWKV6 ids of the
-reference's ``repro.configs``.
+"""Architecture registry of the port: the dense, RWKV6 and hybrid ids of
+the reference's ``repro.configs``.
 
 Each module defines ``CONFIG`` with the reference's values;
 ``get_config(arch)`` resolves by id and ``get_tiny_config(arch)`` returns
@@ -19,13 +19,13 @@ _MODULES: Dict[str, str] = {
     "qwen3-8b": "qwen3_8b",
     "phi3-medium-14b": "phi3_medium_14b",
     "rwkv6-3b": "rwkv6_3b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 # reference arch ids whose family the port does not run yet -> ROADMAP slice
 _NOT_PORTED: Dict[str, str] = {
     "qwen3-moe-30b-a3b": "port slice (c), gmm with MoE",
     "dbrx-132b": "port slice (c), gmm with MoE",
-    "jamba-1.5-large-398b": "port slice (d), mamba_scan with the Jamba forward",
     "seamless-m4t-medium": "port slice (f), enc-dec / VLM",
     "qwen2-vl-72b": "port slice (f), enc-dec / VLM",
 }

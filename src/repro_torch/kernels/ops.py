@@ -4,13 +4,15 @@ Counterpart of ``repro/kernels/ops.py``: the model keeps activations as
 [B,S,H,D]; the kernels take [B,H,S,D].  The transposes are the same as
 the reference's.  The flash kernel reads dense rows, so its inputs are made
 contiguous; the WKV6 kernel reads and writes through strides, so its
-inputs go to it as transposed views, with no copies.
+inputs go to it as transposed views, with no copies.  The selective scan
+takes the model's layout as it is.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba_scan as _mb
 from repro_torch.kernels import rwkv6_scan as _rw
 
 
@@ -31,3 +33,9 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """r,k,v,w: [B,S,H,D]; u: [H,D] -> [B,S,H,D] (model layout)."""
     tr = lambda t: t.transpose(1, 2)
     return _rw.rwkv6_scan(tr(r), tr(k), tr(v), tr(w), u).transpose(1, 2)
+
+
+def mamba_scan(A: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A: [di,N]; dt,x: [B,S,di]; b,c: [B,S,N] -> y [B,S,di] float32."""
+    return _mb.mamba_scan(*(t.contiguous() for t in (A, dt, b, c, x)))

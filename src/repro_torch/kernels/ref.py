@@ -1,8 +1,9 @@
 """Naive PyTorch oracles for the port's kernels (the correctness ground truth).
 
 Counterpart of ``repro/kernels/ref.py``: full softmax attention with no
-tiling, and the strictly sequential WKV6 recurrence, so kernel tests
-compare the tiled and chunked forms against plain semantics.
+tiling, and the strictly sequential WKV6 and selective-scan recurrences,
+so kernel tests compare the tiled and chunked forms against plain
+semantics.
 """
 from __future__ import annotations
 
@@ -40,3 +41,21 @@ def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ys.append(torch.einsum("bhk,bhkv->bhv", r[:, :, t], state + uu * kv))
         state = w[:, :, t, :, None] * state + kv
     return torch.stack(ys, dim=2)
+
+
+def mamba_ref(A: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+              c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Sequential selective scan.
+
+    A: [di,N]; dt,x: [B,S,di]; b,c: [B,S,N] -> y [B,S,di] (float32).
+    """
+    B, S, di = x.shape
+    A, dt, b, c, x = (t.float() for t in (A, dt, b, c, x))
+    h = torch.zeros(B, di, A.shape[1], dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dt[:, t, :, None] * A)
+        dBx = (dt[:, t] * x[:, t])[..., None] * b[:, t, None, :]
+        h = dA * h + dBx
+        ys.append(torch.einsum("bdn,bn->bd", h, c[:, t]))
+    return torch.stack(ys, dim=1)

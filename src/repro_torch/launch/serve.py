@@ -5,10 +5,15 @@ weights through the XUFS fabric and restores them before it serves; the
 port has no fabric yet (ROADMAP port slice (a)), so the weights come from
 the port's seeded init.  The launcher selects the CUDA kernels
 (``attention_impl="pallas"``: dense prefill runs the flash-attention
-kernel; ``scan_impl="pallas"``: the RWKV6 full-sequence forward runs the
-WKV6 kernel, though RWKV6 prefill keeps the chunked path that returns the
-state, as in the reference), serves synthetic requests under continuous
-batching and prints tokens/s with the device.
+kernel; ``scan_impl="pallas"``: the RWKV6 and Mamba full-sequence
+forwards run their scan kernels, though prefill keeps the paths that
+return the state, as in the reference), serves synthetic requests under
+continuous batching and prints tokens/s with the device.
+
+``--arch jamba-1.5-large-398b`` raises ``NotImplementedError`` naming
+ROADMAP port slice (c): the published config has experts, and MoE is not
+ported yet.  The port runs that family without experts (``moe=None``)
+through its Python API.
 """
 from __future__ import annotations
 

@@ -1,13 +1,18 @@
 """Top-level model API: init / forward / loss / prefill / decode, for the
-``DENSE`` and ``SSM`` (RWKV6) families.
+``DENSE``, ``SSM`` (RWKV6) and ``HYBRID`` (Jamba, without experts)
+families.
 
 Counterpart of ``repro/models/model.py``.  The reference stacks layer
 parameters and runs ``jax.lax.scan`` over them; here ``p["blocks"]`` is a
-list of per-layer dicts and depth is a Python loop.  The caches keep the
-reference's layouts: dense ``k``/``v`` [L, B, max_len, kv_dim]; RWKV6
-``tshift``/``cshift`` [L, B, d] and ``wkv`` [L, B, H, D, D] (f32); both
-with a per-slot ``index`` [B] (int32).  Grads and remat wait for the
-training slice; the other families for their own slices (ROADMAP).
+list of per-layer (hybrid: per-superblock) dicts and depth is a Python
+loop.  The caches keep the reference's layouts: dense ``k``/``v`` [L, B,
+max_len, kv_dim]; RWKV6 ``tshift``/``cshift`` [L, B, d] and ``wkv``
+[L, B, H, D, D] (f32); hybrid ``k``/``v`` [nb, B, max_len, kv_dim],
+``conv`` [nb, n_mamba, B, K-1, di] and ``ssm`` [nb, n_mamba, B, di, N]
+(f32); all with a per-slot ``index`` [B] (int32).  ``cache_batch_axes``
+says which axis of each entry is the batch.  Grads and remat wait for the
+training slice; MoE and the other families for their own slices
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -16,9 +21,10 @@ from typing import Any, Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config.base import DENSE, SSM, ModelConfig
+from repro_torch.config.base import DENSE, HYBRID, SSM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as B
+from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as RW
 
@@ -27,7 +33,7 @@ Batch = Dict[str, torch.Tensor]
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in (DENSE, SSM):
+    if cfg.family not in (DENSE, SSM, HYBRID):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; ROADMAP.md lists the "
             "slice that ports it")
@@ -43,12 +49,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     _require_ported(cfg)
     dev = resolve_device(device)
     dt = L.torch_dtype(cfg.param_dtype)
-    block_init = RW.rwkv_init if cfg.family == SSM else B.block_init
+    n = cfg.num_layers
+    if cfg.family == HYBRID:
+        block_init, n = HY.superblock_init, n // cfg.hybrid_period
+    elif cfg.family == SSM:
+        block_init = RW.rwkv_init
+    else:
+        block_init = B.block_init
     return {
         "embed": L.embedding_init(cfg, generator, dev),
         "final_norm": L.rmsnorm_init(cfg.d_model, dt, dev),
-        "blocks": [block_init(cfg, generator, dev)
-                   for _ in range(cfg.num_layers)],
+        "blocks": [block_init(cfg, generator, dev) for _ in range(n)],
     }
 
 
@@ -96,6 +107,9 @@ def forward(cfg: ModelConfig, p: Params, batch: Batch,
     for lp in p["blocks"]:
         if cfg.family == SSM:
             h = _rwkv_block(cfg, lp, h)
+        elif cfg.family == HYBRID:
+            h, a = HY.superblock_apply(cfg, lp, h, positions)
+            aux = aux + a
         else:
             h, a = B.block_apply(cfg, lp, h, positions)
             aux = aux + a
@@ -132,11 +146,27 @@ def loss_fn(cfg: ModelConfig, p: Params, batch: Batch,
 # KV-cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
+def cache_batch_axes(cfg: ModelConfig) -> Dict[str, int]:
+    """The batch (slot) axis of each cache entry, as the reference's
+    ``cache_logical_axes`` places ``"batch"``."""
+    _require_ported(cfg)
+    if cfg.family == HYBRID:
+        axes = {"k": 1, "v": 1, "conv": 2, "ssm": 2}
+    elif cfg.family == SSM:
+        axes = {"tshift": 1, "cshift": 1, "wkv": 1}
+    else:
+        axes = {"k": 1, "v": 1}
+    return dict(axes, index=0)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = "cuda") -> Params:
     _require_ported(cfg)
     dev = resolve_device(device)
     index = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if cfg.family == HYBRID:
+        return dict(HY.hybrid_cache_init(cfg, batch, max_len, dev),
+                    index=index)
     if cfg.family == SSM:
         one = RW.rwkv_cache_init(cfg, batch, dev)
         c = {k: torch.zeros((cfg.num_layers,) + tuple(v.shape), dtype=v.dtype,
@@ -154,9 +184,10 @@ def prefill(cfg: ModelConfig, p: Params, batch: Batch, max_len: int,
             ) -> Tuple[torch.Tensor, Params]:
     """Run the full prompt; returns (last-position logits, filled cache).
 
-    RWKV6 prefill takes the chunked path with the final state
-    (``return_state``), never the scan kernel, as in the reference; its
-    cache has no sequence axis, so ``max_len`` does not bound it.
+    RWKV6 prefill and the hybrid's Mamba layers take the paths that
+    return the final state (``return_state``), never the scan kernels, as
+    in the reference; those states have no sequence axis, so ``max_len``
+    bounds only the attention K/V.
     """
     _require_ported(cfg)
     positions = batch["positions"]
@@ -167,6 +198,15 @@ def prefill(cfg: ModelConfig, p: Params, batch: Batch, max_len: int,
             h, ent = _rwkv_block(cfg, lp, h, return_state=True)
             ents.append(ent)
         cache = {k: torch.stack([e[k] for e in ents]) for k in ents[0]}
+    elif cfg.family == HYBRID:
+        ents = []
+        for lp in p["blocks"]:
+            h, ent = HY.superblock_prefill(cfg, lp, h, positions)
+            ents.append(ent)
+        cache = _embed_cache(cfg, ents, h.shape[0], max_len)
+        cache["conv"] = torch.stack([e["conv"] for e in ents]).to(
+            L.torch_dtype(cfg.dtype))
+        cache["ssm"] = torch.stack([e["ssm"] for e in ents])
     else:
         kvs = []
         for lp in p["blocks"]:
@@ -199,7 +239,7 @@ def decode_step(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
                 cache: Params) -> Tuple[torch.Tensor, Params]:
     """One-token decode.  tokens: [B,1] -> (logits [B,1,V], new cache).
 
-    The state tensors of ``cache`` (k/v, or tshift/cshift/wkv) are
+    The state tensors of ``cache`` (k/v, tshift/cshift/wkv, conv/ssm) are
     updated in place and shared by the returned cache; its ``index`` is a
     new tensor, one higher for every slot, active or not, as in the
     reference.
@@ -209,6 +249,10 @@ def decode_step(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
     h = L.embed_tokens(cfg, p["embed"], tokens)
     pos = index[:, None]
     for i, lp in enumerate(p["blocks"]):
+        if cfg.family == HYBRID:
+            ce = {k: cache[k][i] for k in ("k", "v", "conv", "ssm")}
+            h = HY.superblock_decode(cfg, lp, h, pos, ce, index)
+            continue
         if cfg.family != SSM:
             h, _, _ = B.block_decode(cfg, lp, h, pos, cache["k"][i],
                                      cache["v"][i], index)

@@ -18,7 +18,9 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import decode_step, init_cache, prefill
+from repro_torch.models import (
+    cache_batch_axes, decode_step, init_cache, prefill,
+)
 
 
 @dataclass
@@ -48,6 +50,7 @@ class ServeEngine:
         self.max_len = max_len
         self.device = resolve_device(device)
         self.cache = init_cache(cfg, slots, max_len, self.device)
+        self.batch_axes = cache_batch_axes(cfg)
         self.slot_states = [SlotState() for _ in range(slots)]
         self.requests: Dict[int, Request] = {}
         self.queue: List[int] = []
@@ -101,13 +104,16 @@ class ServeEngine:
     def _splice_cache(self, slot: int, cache1: Any) -> None:
         """Overwrite slot ``slot`` of the pool with a one-request cache.
 
-        Every state tensor keeps batch on axis 1 (dense k/v [L, B, max_len,
-        kv]; RWKV6 tshift/cshift [L, B, d] and wkv [L, B, H, D, D]);
-        ``index`` [B] splices along axis 0.
+        Each entry splices along its own batch axis (``cache_batch_axes``):
+        axis 1 for dense and hybrid k/v [L, B, max_len, kv] and the RWKV6
+        tshift/cshift [L, B, d] and wkv [L, B, H, D, D]; axis 2 for the
+        hybrid conv [nb, n_mamba, B, K-1, di] and ssm [nb, n_mamba, B, di,
+        N]; axis 0 for ``index`` [B].  (The reference splices every entry
+        along axis 1, which puts a hybrid request's Mamba state in the
+        wrong place; ROADMAP lists it.)
         """
         for k, pool in self.cache.items():
-            axis = 0 if k == "index" else 1
-            pool.narrow(axis, slot, 1).copy_(cache1[k])
+            pool.narrow(self.batch_axes[k], slot, 1).copy_(cache1[k])
 
     # ---- sampling --------------------------------------------------------------
     def _sample(self, logits: torch.Tensor, temperature: float) -> np.ndarray:

@@ -1,5 +1,5 @@
-"""The CUDA kernels (flash attention, WKV6 scan) against their plain
-versions, on the card.
+"""The CUDA kernels (flash attention, WKV6 scan, selective scan) against
+their plain versions, on the card.
 
 Skips without a CUDA card.  On the card (no JAX needed):
 
@@ -11,6 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import mamba_scan as tmb
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rwkv6_scan as trw
 
@@ -103,3 +104,39 @@ def test_rwkv6_scan_kernel_model_layout(B, S, H, D):
     got, want = got.cpu().numpy(), want.cpu().numpy()
     scale = float(np.abs(want).max()) + 1.0
     np.testing.assert_allclose(got / scale, want / scale, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,di,N,dt", [
+    (1, 64, 32, 8, None),         # the JAX sweep's shapes
+    (2, 128, 64, 16, None),
+    (1, 256, 128, 16, None),
+    (1, 777, 16384, 16, None),    # ragged S, jamba's d_inner
+    (2, 100, 200, 8, None),       # ragged S and di
+    (1, 1, 128, 16, None),        # one token
+    (1, 256, 256, 16, 30.0),      # strong decay: exp underflows to 0
+    (1, 2048, 256, 16, 1e-3),     # weak decay
+])
+def test_mamba_scan_kernel_matches_plain(B, S, di, N, dt):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator().manual_seed(S + di + N)
+    A = -torch.exp(torch.randn(di, N, generator=gen))
+    if dt is None:
+        dtv = torch.nn.functional.softplus(torch.randn(B, S, di,
+                                                       generator=gen))
+    else:
+        dtv = torch.full((B, S, di), dt)
+    b, c = (torch.randn(B, S, N, generator=gen) for _ in range(2))
+    x = torch.randn(B, S, di, generator=gen)
+    xs = [t.cuda() for t in (A, dtv, b, c, x)]
+    launches = tmb.mamba_scan.launches
+    got = tmb.mamba_scan(*xs)
+    torch.cuda.synchronize()
+    assert tmb.mamba_scan.launches == launches + 1
+    want = tmb.mamba_scan_plain(*xs).cpu().numpy()
+    got = got.cpu().numpy()
+    assert np.isfinite(got).all()
+    scale = float(np.abs(want).max()) + 1.0   # as tests/test_kernels.py, 1e-4
+    np.testing.assert_allclose(got / scale, want / scale, rtol=1e-4,
+                               atol=1e-4)

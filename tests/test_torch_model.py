@@ -19,7 +19,7 @@ from repro.models import decode_step as jdecode
 from repro.models import forward as jforward
 from repro.models import prefill as jprefill
 from repro_torch.configs import ARCH_IDS, get_config, get_tiny_config
-from repro_torch.models import decode_step, forward, prefill
+from repro_torch.models import decode_step, forward, init_params, prefill
 from _torch_parity import batches, configs, f32, params
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -37,13 +37,16 @@ def test_configs_match_reference_field_by_field(arch):
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-1.5-large-398b",
                                   "seamless-m4t-medium", "qwen2-vl-72b"])
 def test_unported_families_name_their_roadmap_slice(arch):
+    """The config lookup raises for a family still to come; jamba's config
+    is ported, and its experts (MoE) raise at the model."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_tiny_config(arch)
+        init_params(get_tiny_config(arch), torch.Generator(), "cpu")
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_forward_matches_jax(arch):
-    jcfg, tcfg = configs(arch, dtype="float32")
+    """Every ported arch; jamba runs without experts (``moe=None``)."""
+    jcfg, tcfg = configs(arch, dtype="float32", moe=None)
     jp, tp = params(jcfg, tcfg)
     jb, tb = batches(tcfg, 2, 16)
     jl, _ = jax.jit(lambda p, b: jforward(jcfg, p, b))(jp, jb)

@@ -7,10 +7,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from repro.models import cache_logical_axes
 from repro.models.attention import attention_decode as jattention_decode
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch.models.attention import attention_decode
+from repro_torch.models import cache_batch_axes, prefill
 from repro_torch.serve.engine import Request, ServeEngine
 from _torch_parity import configs, f32, params
 
@@ -129,3 +131,35 @@ def test_default_device_is_cuda_and_never_falls_back():
     _, cfg = configs("qwen3-8b")
     with pytest.raises(RuntimeError, match="cuda"):
         ServeEngine(cfg, {}, slots=1, max_len=8)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "rwkv6-3b",
+                                  "jamba-1.5-large-398b"])
+def test_cache_batch_axes_are_the_references_batch_axes(arch):
+    """The engine splices each entry along the axis the reference's
+    ``cache_logical_axes`` names "batch": axis 1 for dense and RWKV6 (as
+    before), axis 2 for the hybrid conv/ssm."""
+    jcfg, tcfg = configs(arch, moe=None)
+    want = {k: ax.index("batch") for k, ax in cache_logical_axes(jcfg).items()}
+    assert cache_batch_axes(tcfg) == want
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "rwkv6-3b"])
+def test_splice_cache_still_writes_axis_1(arch):
+    """Dense and RWKV6: admitting a request into slot 1 writes batch index
+    1 of every entry and nothing else, as the axis-1 splice did."""
+    _, cfg = configs(arch, dtype="float32")
+    _, p = params(*configs(arch, dtype="float32"))
+    eng = ServeEngine(cfg, p, slots=3, max_len=16, device="cpu")
+    eng.slot_states[0].active = True              # slot 0 busy -> slot 1
+    eng.add_request(Request(rid=0, prompt=[4, 5, 6, 7], max_new_tokens=2))
+    eng._admit()
+    _, one = prefill(cfg, p, {"tokens": torch.tensor([[4, 5, 6, 7]]),
+                              "positions": torch.arange(4)[None]}, max_len=16)
+    for name, pool in eng.cache.items():
+        if name == "index":
+            continue
+        assert torch.equal(pool[:, 1:2], one[name]), name
+        assert float(pool[:, 0].abs().sum()) == 0.0
+        assert float(pool[:, 2].abs().sum()) == 0.0
+    assert eng.cache["index"].tolist() == [0, 4, 0]
