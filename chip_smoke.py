@@ -6,9 +6,9 @@
 Phases, each of which raises on failure (exit code != 0):
   1. card    - requires CUDA; prints the card's name and power limit;
   2. build   - compiles every kernel (flash_attention.cu, rwkv6_scan.cu,
-               mamba_scan.cu) from the sources in this checkout, one nvcc
-               each, in parallel (sm_90a); prints build times and ptxas
-               registers;
+               mamba_scan.cu, gmm.cu) from the sources in this checkout,
+               one nvcc each, in parallel (sm_90a); prints build times and
+               ptxas registers and spills;
   3. kernel  - holds each kernel against its plain PyTorch version at the
                main paths' shapes and times kernel, plain version, the
                library call where one exists (a yardstick only; the port
@@ -41,12 +41,26 @@ Phases, each of which raises on failure (exit code != 0):
   9. f32     - the same model at 8 layers in f32 (16 do not fit): the
                kernel path against the plain scan path within 1e-3 of the
                logits' scale, and prefill + decode against forward;
+ 10. forward - full-width, full-depth qwen3-moe-30b-a3b (48 layers, 128
+               experts, top-8, bf16, seed 0, attention_impl and scan_impl
+               "pallas") over 4 x 2048 seeded tokens through forward and
+               loss_fn: 144 gmm and 48 flash launches each, finite logits
+               and loss, the bf16 distance to the plain path (einsum and
+               plain attention) printed;
+ 11. serve   - the same model behind ServeEngine with the qwen3-8b
+               traffic: 144 gmm launches a prefill and a decode tick, 48
+               flash launches a prefill;
+ 12. f32     - the same model at 4 layers in f32: the kernel path (gmm +
+               flash) against the plain path within 1e-4 of the logits'
+               scale, every routing difference between the two printed by
+               layer and token, and prefill + decode against forward;
 (every serving run checks each admission's splice of every cache entry)
 then prints a JSON line of kernel numbers and, last, the JSON result line.
 Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -68,6 +82,11 @@ RWKV_BATCH, RWKV_SEQ = 4, 2048
 JAMBA_ARCH = "jamba-1.5-large-398b"
 JAMBA_LAYERS = 16          # 2 superblocks: 33.8 GB of bf16 weights
 JAMBA_F32_LAYERS = 8       # 1 superblock in f32: ~36 GB
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_BATCH = 4              # 4 x 2048 scoring tokens (61.1 GB of weights)
+MOE_F32_LAYERS = 4         # 3.1 B params, 12.5 GB in f32
+GMM_SWEEP = ([128, 128, 128, 128], [100, 0, 300, 112], [0, 0, 512, 0],
+             [1, 2, 3, 506])   # tests/test_kernels.py::test_gmm_sweep
 SFU_PER_CLOCK_PER_SM = 16  # exponentials (special-function units), sm_90
 N_SMS = 132
 PROMPT_LENS = (128, 256, 512, 777, 1024, 1500, 2048, 64)
@@ -797,6 +816,299 @@ def jamba_f32(torch, card: str, cfg):
     return res
 
 
+def gmm_bound(sizes, M, K, N, dtype_name):
+    """(bound ms, what bounds it, counts) of one grouped product: 2 K N
+    FLOPs a row of a group, against lhs rows of the groups, rhs of the
+    non-empty groups and all M output rows, each moved once."""
+    rows = sum(sizes)
+    nonempty = sum(1 for s in sizes if s > 0)
+    itemsize = 2 if dtype_name == "bfloat16" else 4
+    flops = 2.0 * rows * K * N
+    nbytes = itemsize * (rows * K + nonempty * K * N + M * N)
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            dict(flops=flops, bytes=nbytes, ops_ms=t_ops * 1e3,
+                 bytes_ms=t_bytes * 1e3))
+
+
+def gmm_cases(torch, gm):
+    """gmm kernel vs plain version on the card, bf16 and f32; one dict per
+    case.  The check is against the plain version's f32 product of the
+    same inputs: scaled error (max |diff| / max |want|) within 1e-5 in
+    f32, and within 4e-3 in bf16, where the kernel rounds the f32 sum once
+    (2^-8 = 0.0039 of a value at most).  ``max_err`` is against the plain
+    version in the same dtype (a bf16 rounding may land one ulp apart)."""
+    import numpy as np
+    E = 128
+    cases = []
+    for name, R in (("forward", 641), ("prefill", 161), ("decode", 9)):
+        for K, N, what in ((2048, 768, "gate/up"), (768, 2048, "down")):
+            cases.append(dict(case=f"{name} {what}", sizes=[R] * E, K=K,
+                              N=N, equal=True))
+    for sizes in GMM_SWEEP:
+        cases.append(dict(case="sweep", sizes=list(sizes), K=64, N=128,
+                          equal=False))
+    rng = np.random.RandomState(SEED)
+    w = rng.gamma(0.5, size=E)
+    w[rng.choice(E, 16, replace=False)] = 0.0
+    ragged = rng.multinomial(65536, w / w.sum()).tolist()
+    cases.append(dict(case="ragged", sizes=ragged, K=2048, N=768,
+                      equal=False))
+    cases.append(dict(case="partial tiles", sizes=[300, 0, 77, 1000],
+                      K=1000, N=1000, equal=False))
+    cases.append(dict(case="unaligned", sizes=[5, 0, 70, 1, 300], K=100,
+                      N=90, equal=False))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    results = []
+    for c in cases:
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            sizes, K, N = c["sizes"], c["K"], c["N"]
+            G = len(sizes)
+            M = sum(sizes) + (0 if c["equal"] else 7)   # 7 rows past
+            lhs = torch.randn(M, K, generator=gen, device="cuda").to(dt)
+            rhs = (torch.randn(G, K, N, generator=gen, device="cuda")
+                   * K ** -0.5).to(dt)
+            gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+            if c["equal"]:
+                x = lhs.view(G, sizes[0], K)
+
+                def run():
+                    return gm.gmm_equal(x, rhs).view(M, N)
+
+                def library():
+                    return torch.bmm(x, rhs)
+            else:
+                def run():
+                    return gm.gmm(lhs, rhs, gs)
+                library = None
+            out = run()
+            want = gm.gmm_plain(lhs.float(), rhs.float(), gs)
+            plain = gm.gmm_plain(lhs, rhs, gs)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"non-finite kernel output: {c}")
+            tol = 4e-3 if dtype == "bfloat16" else 1e-5
+            err = float((out.float() - want).abs().max()) / float(
+                want.abs().max())
+            tail = float(out[sum(sizes):].float().abs().max()) \
+                if M > sum(sizes) else 0.0
+            if err > tol or tail != 0.0:
+                raise AssertionError(f"gmm disagrees with plain version: "
+                                     f"{c['case']} {dtype}, scaled error "
+                                     f"{err} > {tol} or tail {tail}")
+            max_err = float((out.float() - plain.float()).abs().max())
+            kernel_ms = cuda_ms(torch, run, iters=20)
+            plain_ms = cuda_ms(torch, lambda: gm.gmm_plain(lhs, rhs, gs),
+                               iters=3, warmup=1)
+            library_ms = (cuda_ms(torch, library, iters=20)
+                          if library is not None else None)
+            bound_ms, bound_by, work = gmm_bound(sizes, M, K, N, dtype)
+            res = dict(case=c["case"], dtype=dtype, G=G, M=M, K=K, N=N,
+                       rows=sum(sizes), empty_groups=sizes.count(0),
+                       sizes=sizes if G <= 8 else f"{G} groups",
+                       max_err=max_err, checked_err=err, tol=tol,
+                       kernel_ms=kernel_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, **work)
+            results.append(res)
+            print("kernel case gmm " + json.dumps(res), flush=True)
+            del lhs, rhs, out, want, plain
+    return results
+
+
+def moe_forward(torch, card: str, cfg, params):
+    """Full-width qwen3-moe forward and loss through the gmm and flash
+    kernels (3 gmm and 1 flash launch a layer)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.models import forward, loss_fn
+
+    B, S, L = MOE_BATCH, RWKV_SEQ, cfg.num_layers
+    batch = scoring_batch(torch, cfg, B, S)
+    forward(cfg, params, batch)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    gm.gmm.launches = fa.flash_attention.launches = 0
+    t = time.perf_counter()
+    logits, aux = forward(cfg, params, batch)
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t) * 1e3
+    launches = (gm.gmm.launches, fa.flash_attention.launches)
+    if launches != (3 * L, L):
+        raise AssertionError(f"one forward launched (gmm, flash) = "
+                             f"{launches}, want {(3 * L, L)}")
+    if tuple(logits.shape) != (B, S, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()) or \
+            not float(aux) > 0.0:
+        raise AssertionError(f"bad forward: logits {tuple(logits.shape)}, "
+                             f"aux {float(aux)}")
+    t = time.perf_counter()
+    loss, metrics = loss_fn(cfg, params, batch)
+    torch.cuda.synchronize()
+    loss_ms = (time.perf_counter() - t) * 1e3
+    if (gm.gmm.launches, fa.flash_attention.launches) != (6 * L, 2 * L):
+        raise AssertionError("loss_fn did not run each kernel per layer")
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"non-finite loss {float(loss)}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_call(torch, lambda: forward(cfg, params, batch),
+                        f"{cfg.name} forward")
+    # the plain path (einsum experts, plain attention) in bf16, for the
+    # distance only: the check is in f32, at MOE_F32_LAYERS layers
+    lo_x = forward(cfg.replace(scan_impl="xla", attention_impl="xla"),
+                   params, batch)[0]
+    bf16_err = float((logits.float() - lo_x.float()).abs().max())
+    res = dict(card=card, arch=cfg.name, layers=L, params=n_params(params),
+               batch=B, seq=S, forward_ms=forward_ms,
+               tokens_per_s=B * S / forward_ms * 1e3, loss_fn_ms=loss_ms,
+               loss=float(loss), ce=float(metrics["ce"]),
+               aux=float(metrics["aux"]), gmm_launches=launches[0],
+               flash_launches=launches[1], max_memory_allocated_gb=peak_gb,
+               bf16_kernel_vs_plain_path_max_err=bf16_err,
+               max_abs_logit=float(logits.float().abs().max()), profile=prof)
+    print("forward " + json.dumps(res), flush=True)
+    return res
+
+
+def moe_serve(torch, card: str, cfg, params):
+    """qwen3-moe behind ServeEngine: 3 gmm launches a layer in every
+    prefill and every decode tick, the flash kernel in each prefill."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gmm as gm
+    prompts = prompts_for(cfg)
+    L = cfg.num_layers
+    gm.gmm.launches = fa.flash_attention.launches = 0
+    _, res = drive_engine(torch, cfg, params, prompts)
+    launches = (gm.gmm.launches, fa.flash_attention.launches)
+    want = (3 * L * (len(prompts) + res["ticks"]), L * len(prompts))
+    if launches != want:
+        raise AssertionError(f"serving launched (gmm, flash) = {launches}, "
+                             f"want {want}")
+    prof = profile_ticks(torch, cfg, params, prompts)
+    res = dict(card=card, arch=cfg.name, layers=L, **res,
+               gmm_launches=launches[0], flash_launches=launches[1],
+               profile=prof)
+    print("serve " + json.dumps(res), flush=True)
+    return res
+
+
+def _kept(ids, E: int, C: int):
+    """Which of the [T, k] assignments ``ids`` fit their expert's capacity
+    C, by the reference's token-major running count."""
+    import torch
+    flat = ids.reshape(-1)
+    oh = torch.nn.functional.one_hot(flat, E).to(torch.int32)
+    pos = (torch.cumsum(oh, dim=0) - 1).gather(1, flat[:, None])[:, 0]
+    return (pos < C).reshape(ids.shape)
+
+
+def moe_f32(torch, card: str, cfg):
+    """At MOE_F32_LAYERS layers in f32: the kernel path (gmm + flash)
+    against the plain path (einsum + plain attention) within 1e-4 of the
+    logits' scale, and prefill(S-1) + decode(1) against forward(S).
+
+    The two paths' hidden states differ by rounding, so a token whose k-th
+    and (k+1)-th router probabilities nearly tie can take another expert
+    on one path, and through capacity move another token's drop.  Each
+    such routing difference is printed (layer, token, the probability gap
+    on the kernel path); the first in a sequence must be a near-tie (gap
+    < 1e-4), and the sequences it touches are held out of the 1e-4 check
+    (their error is printed).  At least one sequence must remain."""
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.models import decode_step, forward, prefill
+    from repro_torch.models import moe as moe_mod
+    c32 = cfg.replace(num_layers=MOE_F32_LAYERS, dtype="float32",
+                      param_dtype="float32")
+    p32 = seeded_params(torch, c32)
+    B, S = MOE_BATCH, RWKV_SEQ
+    batch = scoring_batch(torch, c32, B, S)
+    m = c32.moe
+    routes = []
+    real = moe_mod._moe_tokens
+
+    def recording(cfg_, p, xf):
+        probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)
+        top, ids = torch.topk(probs, m.experts_per_token + 1, dim=-1)
+        routes.append((ids[:, :-1].sort(dim=-1).values,
+                       top[:, -2] - top[:, -1]))
+        return real(cfg_, p, xf)
+
+    moe_mod._moe_tokens = recording
+    try:
+        n0 = gm.gmm.launches
+        lo_k = forward(c32, p32, batch)[0]
+        if gm.gmm.launches != n0 + 3 * MOE_F32_LAYERS:
+            raise AssertionError("the f32 forward did not run the f32 gmm")
+        lo_x = forward(c32.replace(scan_impl="xla", attention_impl="xla"),
+                       p32, batch)[0]
+    finally:
+        moe_mod._moe_tokens = real
+    C = moe_mod._capacity(m, B * S)
+    flips, held_out, dropped = [], set(), []
+    for layer in range(MOE_F32_LAYERS):
+        (ids_k, gap), (ids_x, _) = routes[layer], routes[MOE_F32_LAYERS + layer]
+        differ = (ids_k != ids_x).any(-1)
+        kept_k = _kept(ids_k, m.num_experts, C)
+        moved = (kept_k != _kept(ids_x, m.num_experts, C)).any(-1)
+        dropped.append(1.0 - float(kept_k.float().mean()))
+        before = set(held_out)     # sequences already apart downstream
+        for tok in torch.nonzero(differ | moved)[:, 0].tolist():
+            f = dict(layer=layer, token=tok, seq=tok // S, pos=tok % S,
+                     experts_differ=bool(differ[tok]), gap=float(gap[tok]),
+                     downstream=tok // S in before)
+            flips.append(f)
+            held_out.add(tok // S)
+            if len(flips) <= 20:
+                print("routing difference " + json.dumps(f), flush=True)
+            if f["experts_differ"] and not f["downstream"] and \
+                    f["gap"] >= 1e-4:
+                raise AssertionError(f"routing differs where the router "
+                                     f"does not nearly tie: {f}")
+    kept = [b for b in range(B) if b not in held_out]
+    if not kept:
+        raise AssertionError("routing differs in every sequence")
+    parity = scaled_err(lo_k[kept], lo_x[kept])
+    if parity > 1e-4:
+        raise AssertionError(f"f32 logits: kernel path vs plain path scaled "
+                             f"error {parity} beyond 1e-4")
+    held_err = {b: scaled_err(lo_k[b], lo_x[b]) for b in sorted(held_out)}
+    scale = float(lo_x.abs().max())
+    del lo_k, lo_x
+    # prefill(776) + decode(the 777th) against forward(777)[-1]: capacity
+    # depends on how many tokens are routed together, so the forward may
+    # drop the last token where the one-token decode does not (in the
+    # reference too).  With random weights the routing past layer 0
+    # crowds a few experts, so only capacity_factor = E / k (C >= T: no
+    # expert can overflow) leaves room for every token.
+    roomy = c32.replace(moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.experts_per_token))
+    toks = batch["tokens"][:1, :777]
+    pos = batch["positions"][:1, :777]
+    full = forward(roomy, p32, {"tokens": toks, "positions": pos})[0][:, -1]
+    _, cache = prefill(roomy, p32, {"tokens": toks[:, :-1],
+                                    "positions": pos[:, :-1]},
+                       max_len=MAX_LEN)
+    dec = decode_step(roomy, p32, toks[:, -1:], cache)[0][:, 0]
+    decode_err = scaled_err(dec, full)
+    if decode_err > 1e-4:
+        raise AssertionError(f"f32 prefill + decode vs forward: scaled error "
+                             f"{decode_err} beyond 1e-4")
+    res = dict(card=card, arch=c32.name, layers=MOE_F32_LAYERS,
+               params=n_params(p32), capacity=C,
+               dropped_share_by_layer=dropped, routing_differences=len(flips),
+               sequences_held_out=sorted(held_out),
+               held_out_scaled_err=held_err, parity_f32_scaled_err=parity,
+               f32_max_abs_logit=scale,
+               decode_vs_forward_f32_scaled_err=decode_err)
+    print("f32 " + json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -824,9 +1136,10 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gmm as gm
     from repro_torch.kernels import mamba_scan as mb
     from repro_torch.kernels import rwkv6_scan as rw
-    names = ("flash_attention", "rwkv6_scan", "mamba_scan")
+    names = ("flash_attention", "rwkv6_scan", "mamba_scan", "gmm")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.load, names))
@@ -846,6 +1159,9 @@ def main() -> int:
     clock_hz = max_sm_clock_hz()
     print(f"max SM clock {clock_hz / 1e6:.0f} MHz", flush=True)
     mcases = mamba_cases(torch, mb, clock_hz)
+    gcases = gmm_cases(torch, gm)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 4. qwen3-8b serving through the flash kernel
     phase("serve qwen3-8b")
@@ -891,12 +1207,34 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 10. kernel line: each kernel at its main path's largest shape
+    # 10.-12. qwen3-moe at full width and depth: forward and loss through
+    # the gmm and flash kernels, serving, then the f32 check at 4 layers
+    cfg = get_config(MOE_ARCH).replace(param_dtype="bfloat16",
+                                       attention_impl="pallas",
+                                       scan_impl="pallas")
+    params = seeded_params(torch, cfg)
+    with torch.inference_mode():
+        phase(f"forward {MOE_ARCH}")
+        qfwd = moe_forward(torch, card, cfg, params)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(f"serve {MOE_ARCH}")
+        moe_serve(torch, card, cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(f"f32 {MOE_ARCH}")
+        moe_f32(torch, card, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13. kernel line: each kernel at its main path's largest shape
     phase("done")
     big = next(c for c in cases if c["Sq"] == 2048)
     wbig = next(c for c in wcases if c["B"] == RWKV_BATCH
                 and c["S"] == RWKV_SEQ)
     mbig = mcases[0]    # (4, 2048, 16384, 16), the jamba forward's shape
+    gbig = gcases[0]    # bf16, 128 x 641 rows, 2048 -> 768: the forward's
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -939,9 +1277,23 @@ def main() -> int:
         "bound_ms": mbig["bound_ms"],
         "bound_by": mbig["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "gmm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gmm.cu",
+        "replaces": "src/repro/kernels/gmm.py:25",
+        "tpu_kernel": "kernels/gmm.py:_gmm_kernel",
+        "launches": qfwd["gmm_launches"],
+        "max_abs_err": max(c["max_err"] for c in gcases),
+        "max_err": max(c["max_err"] for c in gcases),
+        "ms": gbig["kernel_ms"],
+        "plain_ms": gbig["plain_ms"],
+        "bound_ms": gbig["bound_ms"],
+        "bound_by": gbig["bound_by"],
+        "library_ms": gbig["library_ms"],
     }]}), flush=True)
 
-    # 11. result
+    # 14. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

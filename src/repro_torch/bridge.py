@@ -6,10 +6,12 @@ carry a stacked leading layer axis (``repro/models/model.py``
 path (``repro/checkpoint/ckpt.py`` ``_path_str``: ``blocks/attn/wq``,
 ``embed/embedding``, ``final_norm``).  The port keeps the same names with
 ``blocks`` as a list of per-layer dicts.  The hybrid family stacks
-superblocks, and inside each its Mamba and MLP layers on a second axis
-(``blocks/mamba/in_proj`` is [nb, n_mamba, ...]); the port keeps those
-layers as lists of dicts in each superblock (``blocks[i]["mamba"][j]``)
-and ``blocks/ln_mix``/``ln_ffn`` as [period, d] tensors.
+superblocks, and inside each its Mamba, MLP and MoE layers on a second
+axis (``blocks/mamba/in_proj`` is [nb, n_mamba, ...], ``blocks/moe/wo``
+[nb, n_moe, E, f, d]); the port keeps those layers as lists of dicts in
+each superblock (``blocks[i]["mamba"][j]``) and ``blocks/ln_mix``/
+``ln_ffn`` as [period, d] tensors.  An MoE block's experts are
+``blocks/moe/{router,wi_gate,wi_up,wo}`` [L, ...], the router in f32.
 ``params_from_numpy`` takes the
 reference's tree as numpy arrays, nested or already flat by path name;
 ``params_to_numpy`` gives it back.  bf16 travels as a 16-bit view, because
@@ -23,9 +25,9 @@ from typing import Any, Dict, List, Mapping
 import numpy as np
 import torch
 
-from repro_torch.config.base import DENSE, HYBRID, SSM, ModelConfig
+from repro_torch.config.base import DENSE, HYBRID, MOE, SSM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.hybrid import n_mamba
+from repro_torch.models.hybrid import n_mamba, n_moe
 
 Params = Dict[str, Any]
 
@@ -39,12 +41,14 @@ MAMBA_LEAVES = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
                 "dt_bias", "A_log", "D", "out_proj", "dt_norm", "b_norm",
                 "c_norm")
 MLP_LEAVES = ("wi_gate", "wi_up", "wo")
+# per-layer leaves of an MoE layer (``repro/models/moe.py`` moe_init)
+MOE_LEAVES = ("router", "wi_gate", "wi_up", "wo")
 
 
 def leaf_names(cfg: ModelConfig) -> List[str]:
-    """The reference's leaf path names for a dense, RWKV6 or hybrid
+    """The reference's leaf path names for a dense, MoE, RWKV6 or hybrid
     ``cfg``."""
-    if cfg.family not in (DENSE, SSM, HYBRID):
+    if cfg.family not in (DENSE, MOE, SSM, HYBRID):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     names = ["embed/embedding", "final_norm"]
     if not cfg.tie_embeddings:
@@ -62,7 +66,10 @@ def leaf_names(cfg: ModelConfig) -> List[str]:
     else:
         names += ["blocks/ln1", "blocks/ln2"]
     names += [f"blocks/attn/{n}" for n in attn]
-    names += [f"blocks/mlp/{n}" for n in MLP_LEAVES]
+    if cfg.family == HYBRID or not cfg.is_moe:
+        names += [f"blocks/mlp/{n}" for n in MLP_LEAVES]
+    if cfg.is_moe:
+        names += [f"blocks/moe/{n}" for n in MOE_LEAVES]
     return names
 
 
@@ -70,7 +77,10 @@ def _sublayers(cfg: ModelConfig) -> Dict[str, int]:
     """Superblock entries kept as per-layer lists -> their length."""
     if cfg.family != HYBRID:
         return {}
-    return {"mamba": n_mamba(cfg), "mlp": cfg.hybrid_period}
+    subs = {"mamba": n_mamba(cfg), "mlp": cfg.hybrid_period - n_moe(cfg)}
+    if n_moe(cfg):
+        subs["moe"] = n_moe(cfg)
+    return subs
 
 
 def _n_blocks(cfg: ModelConfig) -> int:

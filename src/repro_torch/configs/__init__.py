@@ -1,5 +1,5 @@
-"""Architecture registry of the port: the dense, RWKV6 and hybrid ids of
-the reference's ``repro.configs``.
+"""Architecture registry of the port: the dense, MoE, RWKV6 and hybrid ids
+of the reference's ``repro.configs``.
 
 Each module defines ``CONFIG`` with the reference's values;
 ``get_config(arch)`` resolves by id and ``get_tiny_config(arch)`` returns
@@ -18,14 +18,14 @@ _MODULES: Dict[str, str] = {
     "qwen3-4b": "qwen3_4b",
     "qwen3-8b": "qwen3_8b",
     "phi3-medium-14b": "phi3_medium_14b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "dbrx-132b": "dbrx_132b",
     "rwkv6-3b": "rwkv6_3b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 # reference arch ids whose family the port does not run yet -> ROADMAP slice
 _NOT_PORTED: Dict[str, str] = {
-    "qwen3-moe-30b-a3b": "port slice (c), gmm with MoE",
-    "dbrx-132b": "port slice (c), gmm with MoE",
     "seamless-m4t-medium": "port slice (f), enc-dec / VLM",
     "qwen2-vl-72b": "port slice (f), enc-dec / VLM",
 }

@@ -3,9 +3,6 @@
 72L d_model=8192 64H (GQA kv=8) d_ff=24576 vocab=65536, MoE 16e top-2
 Attention every 8th layer (1:7 attn:mamba interleave); MoE every 2nd layer.
 [arXiv:2403.19887; hf]
-
-The port runs this family without experts (``moe=None``) until MoE is
-ported; with them, ``init_params`` raises and names the ROADMAP slice.
 """
 from repro_torch.config import ModelConfig, MoeConfig, MambaConfig, HYBRID
 

@@ -5,13 +5,16 @@ Counterpart of ``repro/kernels/ops.py``: the model keeps activations as
 the reference's.  The flash kernel reads dense rows, so its inputs are made
 contiguous; the WKV6 kernel reads and writes through strides, so its
 inputs go to it as transposed views, with no copies.  The selective scan
-takes the model's layout as it is.
+takes the model's layout as it is.  The grouped matmul takes rows sorted
+by group (``gmm_sorted``, the reference's wrapper of that name) or the MoE
+capacity buffer [E, C+1, d] (``gmm_equal``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import gmm as _gmm
 from repro_torch.kernels import mamba_scan as _mb
 from repro_torch.kernels import rwkv6_scan as _rw
 
@@ -39,3 +42,19 @@ def mamba_scan(A: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A: [di,N]; dt,x: [B,S,di]; b,c: [B,S,N] -> y [B,S,di] float32."""
     return _mb.mamba_scan(*(t.contiguous() for t in (A, dt, b, c, x)))
+
+
+def gmm_sorted(lhs: torch.Tensor, rhs: torch.Tensor,
+               group_sizes: torch.Tensor) -> torch.Tensor:
+    """lhs: [M,K] rows sorted by group; rhs: [G,K,N]; group_sizes: [G]
+    (int32, on lhs's device) -> [M,N]; rows past the groups are zero.
+
+    Any sizes, empty groups included; unlike the reference, no padded copy
+    of lhs and no host-side look at the sizes.
+    """
+    return _gmm.gmm(lhs.contiguous(), rhs.contiguous(), group_sizes)
+
+
+def gmm_equal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: [G,R,K]; w: [G,K,N] -> [G,R,N] (``einsum("grk,gkn->grn")``)."""
+    return _gmm.gmm_equal(x.contiguous(), w.contiguous())

@@ -1,9 +1,9 @@
 """Naive PyTorch oracles for the port's kernels (the correctness ground truth).
 
 Counterpart of ``repro/kernels/ref.py``: full softmax attention with no
-tiling, and the strictly sequential WKV6 and selective-scan recurrences,
-so kernel tests compare the tiled and chunked forms against plain
-semantics.
+tiling, the strictly sequential WKV6 and selective-scan recurrences, and
+a grouped matmul that picks each row's weight matrix, so kernel tests
+compare the tiled and chunked forms against plain semantics.
 """
 from __future__ import annotations
 
@@ -59,3 +59,22 @@ def mamba_ref(A: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         h = dA * h + dBx
         ys.append(torch.einsum("bdn,bn->bd", h, c[:, t]))
     return torch.stack(ys, dim=1)
+
+
+def gmm_ref(lhs: torch.Tensor, rhs: torch.Tensor,
+            group_sizes: torch.Tensor) -> torch.Tensor:
+    """Grouped matmul.  lhs: [M,K] rows sorted by group; rhs: [G,K,N].
+
+    Row m belongs to group g iff offsets[g] <= m < offsets[g+1]; rows past
+    the last group take the last group's matrix, as the reference clips.
+    """
+    M = lhs.shape[0]
+    G = rhs.shape[0]
+    sizes = group_sizes.to(lhs.device)
+    ends = torch.cumsum(sizes, 0)
+    row_group = (torch.arange(M, device=lhs.device)[:, None]
+                 >= ends[None, :]).sum(1)
+    row_group = torch.clamp(row_group, 0, G - 1)
+    picked = rhs[row_group]                       # [M, K, N]
+    return torch.einsum("mk,mkn->mn", lhs.float(),
+                        picked.float()).to(lhs.dtype)

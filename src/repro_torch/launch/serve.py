@@ -5,15 +5,19 @@ weights through the XUFS fabric and restores them before it serves; the
 port has no fabric yet (ROADMAP port slice (a)), so the weights come from
 the port's seeded init.  The launcher selects the CUDA kernels
 (``attention_impl="pallas"``: dense prefill runs the flash-attention
-kernel; ``scan_impl="pallas"``: the RWKV6 and Mamba full-sequence
-forwards run their scan kernels, though prefill keeps the paths that
-return the state, as in the reference), serves synthetic requests under
-continuous batching and prints tokens/s with the device.
+kernel; ``scan_impl="pallas"``: the MoE expert products run the
+grouped-matmul kernel, and the RWKV6 and Mamba full-sequence forwards
+their scan kernels, though prefill keeps the paths that return the
+state, as in the reference), serves synthetic requests under continuous
+batching and prints tokens/s with the device.
 
-``--arch jamba-1.5-large-398b`` raises ``NotImplementedError`` naming
-ROADMAP port slice (c): the published config has experts, and MoE is not
-ported yet.  The port runs that family without experts (``moe=None``)
-through its Python API.
+``--arch qwen3-moe-30b-a3b`` serves the MoE family at full width on one
+80 GB card (61.1 GB of bf16 weights).  ``--arch jamba-1.5-large-398b``
+(with its experts) and ``--arch dbrx-132b`` run with ``--tiny --device
+cpu`` (the tiny configs' head_dim 16 is not one the flash kernel takes);
+at full width one jamba superblock with its four MoE layers is 90.5 GB
+and dbrx 263 GB, more than one card holds, and they wait for the
+multi-device slice (ROADMAP port slice (g)).
 """
 from __future__ import annotations
 

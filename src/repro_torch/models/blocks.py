@@ -1,7 +1,7 @@
-"""Decoder transformer block with a dense SwiGLU MLP.
+"""Decoder transformer block (dense MLP or MoE) shared by the dense and
+MoE families.
 
-Counterpart of ``repro/models/blocks.py``, dense path.  The MoE block
-waits for its own slice of the port.
+Counterpart of ``repro/models/blocks.py``.
 """
 from __future__ import annotations
 
@@ -16,27 +16,33 @@ from repro_torch.models.attention import (
 from repro_torch.models.layers import (
     Params, mlp_apply, mlp_init, rmsnorm, rmsnorm_init, torch_dtype,
 )
-
-_MOE_TODO = "MoE blocks wait for ROADMAP port slice (c), gmm with MoE"
+from repro_torch.models.moe import moe_apply, moe_init
 
 
 def block_init(cfg: ModelConfig, gen: torch.Generator,
                device: torch.device) -> Params:
-    if cfg.is_moe:
-        raise NotImplementedError(_MOE_TODO)
     dt = torch_dtype(cfg.param_dtype)
-    return {
+    p = {
         "ln1": rmsnorm_init(cfg.d_model, dt, device),
         "attn": attention_init(cfg, gen, device),
         "ln2": rmsnorm_init(cfg.d_model, dt, device),
-        "mlp": mlp_init(cfg, gen, device),
     }
-
-
-def _ffn(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     if cfg.is_moe:
-        raise NotImplementedError(_MOE_TODO)
-    return h + mlp_apply(cfg, p["mlp"], rmsnorm(h, p["ln2"], cfg.rms_eps))
+        p["moe"] = moe_init(cfg, gen, device)
+    else:
+        p["mlp"] = mlp_init(cfg, gen, device)
+    return p
+
+
+def _ffn(cfg: ModelConfig, p: Params, h: torch.Tensor,
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    x = rmsnorm(h, p["ln2"], cfg.rms_eps)
+    if cfg.is_moe:
+        y, aux = moe_apply(cfg, p["moe"], x)
+    else:
+        y = mlp_apply(cfg, p["mlp"], x)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + y, aux
 
 
 def block_apply(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -44,7 +50,7 @@ def block_apply(cfg: ModelConfig, p: Params, h: torch.Tensor,
     """Full-sequence forward.  h: [B,S,d] -> (h, aux_loss)."""
     a = attention_apply(cfg, p["attn"], rmsnorm(h, p["ln1"], cfg.rms_eps),
                         positions, causal=True)
-    return _ffn(cfg, p, h + a), torch.zeros((), device=h.device)
+    return _ffn(cfg, p, h + a)
 
 
 def block_prefill(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -53,7 +59,8 @@ def block_prefill(cfg: ModelConfig, p: Params, h: torch.Tensor,
                              torch.Tensor]:
     a, cache = attention_prefill(cfg, p["attn"],
                                  rmsnorm(h, p["ln1"], cfg.rms_eps), positions)
-    return _ffn(cfg, p, h + a), cache, torch.zeros((), device=h.device)
+    h, aux = _ffn(cfg, p, h + a)
+    return h, cache, aux
 
 
 def block_decode(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -63,4 +70,5 @@ def block_decode(cfg: ModelConfig, p: Params, h: torch.Tensor,
     a, ck, cv = attention_decode(cfg, p["attn"],
                                  rmsnorm(h, p["ln1"], cfg.rms_eps),
                                  positions, cache_k, cache_v, index)
-    return _ffn(cfg, p, h + a), ck, cv
+    h, _ = _ffn(cfg, p, h + a)
+    return h, ck, cv

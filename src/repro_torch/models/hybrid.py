@@ -1,22 +1,24 @@
 """Jamba-style hybrid superblock: period-P interleave of Mamba and attention.
 
-Counterpart of ``repro/models/hybrid.py``.  With period 8 and attn_pos 4
-the superblock is
+Counterpart of ``repro/models/hybrid.py``.  With period 8, attn_pos 4 and
+MoE on odd positions the superblock is
 
-    pos 0-3: mamba + MLP      pos 4: attention + MLP      pos 5-7: mamba + MLP
+    pos 0: mamba + MLP        pos 4: attention + MLP
+    pos 1: mamba + MoE        pos 5: mamba + MoE
+    pos 2: mamba + MLP        pos 6: mamba + MLP
+    pos 3: mamba + MoE        pos 7: mamba + MoE
 
-The reference puts MoE on odd positions when the config has experts;
-MoE waits for its own slice of the port, so such a config raises.  The
-reference stacks each superblock's Mamba and MLP layers on a leading
-axis; here ``p["mamba"]`` and ``p["mlp"]`` are lists of per-layer dicts,
-and ``ln_mix``/``ln_ffn`` stay [period, d] tensors.  The decode cache
-keeps the reference's layout: ``k``/``v`` [nb, B, max_len, kv_dim],
+and without experts every position's FFN is the MLP.  The reference
+stacks each superblock's Mamba, MLP and MoE layers on a leading axis;
+here ``p["mamba"]``, ``p["mlp"]`` and ``p["moe"]`` are lists of per-layer
+dicts, and ``ln_mix``/``ln_ffn`` stay [period, d] tensors.  The decode
+cache keeps the reference's layout: ``k``/``v`` [nb, B, max_len, kv_dim],
 ``conv`` [nb, n_mamba, B, K-1, di] and ``ssm`` [nb, n_mamba, B, di, N]
 (f32), so batch is axis 2 of the Mamba entries.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -30,67 +32,101 @@ from repro_torch.models.layers import (
 from repro_torch.models.mamba import (
     mamba_apply, mamba_cache_init, mamba_decode, mamba_init,
 )
+from repro_torch.models.moe import moe_apply, moe_init
 
-_MOE_TODO = "MoE blocks wait for ROADMAP port slice (c), gmm with MoE"
 
-
-def _positions(cfg: ModelConfig) -> List[str]:
-    """The mixer ("attn" or "mamba") of each position in one superblock;
-    every position's FFN is the dense MLP."""
-    if cfg.is_moe:
-        raise NotImplementedError(_MOE_TODO)
-    return ["attn" if i == cfg.hybrid_attn_pos else "mamba"
-            for i in range(cfg.hybrid_period)]
+def _positions(cfg: ModelConfig) -> List[Tuple[str, str]]:
+    """[(mixer, ffn)] for each position in one superblock: the mixer is
+    "attn" or "mamba", the FFN "moe" where ``i % moe_every == moe_offset``
+    (with experts) and "mlp" elsewhere."""
+    m = cfg.moe
+    out = []
+    for i in range(cfg.hybrid_period):
+        mixer = "attn" if i == cfg.hybrid_attn_pos else "mamba"
+        is_moe = cfg.is_moe and i % m.moe_every == m.moe_offset
+        out.append((mixer, "moe" if is_moe else "mlp"))
+    return out
 
 
 def n_mamba(cfg: ModelConfig) -> int:
-    return _positions(cfg).count("mamba")
+    return sum(1 for mixer, _ in _positions(cfg) if mixer == "mamba")
+
+
+def n_moe(cfg: ModelConfig) -> int:
+    return sum(1 for _, ffn in _positions(cfg) if ffn == "moe")
 
 
 def superblock_init(cfg: ModelConfig, gen: torch.Generator,
                     device: torch.device) -> Params:
     dt = torch_dtype(cfg.param_dtype)
     pos = _positions(cfg)
-    return {
+    p = {
         "attn": attention_init(cfg, gen, device),
         "mamba": [mamba_init(cfg, gen, device) for _ in range(n_mamba(cfg))],
-        "mlp": [mlp_init(cfg, gen, device) for _ in pos],
+        "mlp": [mlp_init(cfg, gen, device)
+                for _ in range(len(pos) - n_moe(cfg))],
         "ln_mix": torch.ones((len(pos), cfg.d_model), dtype=dt, device=device),
         "ln_ffn": torch.ones((len(pos), cfg.d_model), dtype=dt, device=device),
     }
+    if n_moe(cfg):
+        p["moe"] = [moe_init(cfg, gen, device) for _ in range(n_moe(cfg))]
+    return p
 
 
-def _ffn(cfg: ModelConfig, p: Params, h: torch.Tensor, i: int) -> torch.Tensor:
+def _layers(cfg: ModelConfig, p: Params):
+    """Per position: (position, mixer, ffn kind, that FFN's parameters)."""
+    io = il = 0
+    for i, (mixer, ffn) in enumerate(_positions(cfg)):
+        if ffn == "moe":
+            yield i, mixer, ffn, p["moe"][io]
+            io += 1
+        else:
+            yield i, mixer, ffn, p["mlp"][il]
+            il += 1
+
+
+def _ffn(cfg: ModelConfig, p: Params, h: torch.Tensor, i: int,
+         ffn: str, fp: Params) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """h + FFN(norm(h)) at position i -> (h, aux loss or None for an MLP)."""
     x = rmsnorm(h, p["ln_ffn"][i], cfg.rms_eps)
-    return h + mlp_apply(cfg, p["mlp"][i], x)
+    if ffn == "moe":
+        y, aux = moe_apply(cfg, fp, x)
+        return h + y, aux
+    return h + mlp_apply(cfg, fp, x), None
 
 
 def superblock_apply(cfg: ModelConfig, p: Params, h: torch.Tensor,
                      positions: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward through one superblock -> (h, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     im = 0
-    for i, mixer in enumerate(_positions(cfg)):
+    for i, mixer, ffn, fp in _layers(cfg, p):
         x = rmsnorm(h, p["ln_mix"][i], cfg.rms_eps)
         if mixer == "attn":
             h = h + attention_apply(cfg, p["attn"], x, positions, causal=True)
         else:
             h = h + mamba_apply(cfg, p["mamba"][im], x)
             im += 1
-        h = _ffn(cfg, p, h, i)
-    return h, torch.zeros((), device=h.device)
+        h, a = _ffn(cfg, p, h, i, ffn, fp)
+        if a is not None:
+            aux = aux + a
+    return h, aux
 
 
 def superblock_prefill(cfg: ModelConfig, p: Params, h: torch.Tensor,
                        positions: torch.Tensor,
-                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                  torch.Tensor]:
     """Prefill: also returns this superblock's decode state, the attention
-    K/V [B,S,kv_dim] and the Mamba ``conv``/``ssm`` [n_mamba, B, ...].
-    The Mamba layers take the state-returning scan, never the kernel."""
+    K/V [B,S,kv_dim] and the Mamba ``conv``/``ssm`` [n_mamba, B, ...], and
+    its aux loss.  The Mamba layers take the state-returning scan, never
+    the kernel."""
     cache: Dict[str, torch.Tensor] = {}
     states = []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     im = 0
-    for i, mixer in enumerate(_positions(cfg)):
+    for i, mixer, ffn, fp in _layers(cfg, p):
         x = rmsnorm(h, p["ln_mix"][i], cfg.rms_eps)
         if mixer == "attn":
             a, kv = attention_prefill(cfg, p["attn"], x, positions)
@@ -101,10 +137,12 @@ def superblock_prefill(cfg: ModelConfig, p: Params, h: torch.Tensor,
             h = h + y
             states.append(st)
             im += 1
-        h = _ffn(cfg, p, h, i)
+        h, a = _ffn(cfg, p, h, i, ffn, fp)
+        if a is not None:
+            aux = aux + a
     for name in ("conv", "ssm"):
         cache[name] = torch.stack([st[name] for st in states])
-    return h, cache
+    return h, cache, aux
 
 
 def superblock_decode(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -114,7 +152,7 @@ def superblock_decode(cfg: ModelConfig, p: Params, h: torch.Tensor,
     [B, max_len, kv_dim], ``conv`` [n_mamba, B, K-1, di] and ``ssm``
     [n_mamba, B, di, N]; all four are updated in place."""
     im = 0
-    for i, mixer in enumerate(_positions(cfg)):
+    for i, mixer, ffn, fp in _layers(cfg, p):
         x = rmsnorm(h, p["ln_mix"][i], cfg.rms_eps)
         if mixer == "attn":
             a, _, _ = attention_decode(cfg, p["attn"], x, positions,
@@ -127,7 +165,7 @@ def superblock_decode(cfg: ModelConfig, p: Params, h: torch.Tensor,
             for name, t in new.items():
                 st[name].copy_(t)
             im += 1
-        h = _ffn(cfg, p, h, i)
+        h, _ = _ffn(cfg, p, h, i, ffn, fp)
     return h
 
 

@@ -1,6 +1,5 @@
 """Top-level model API: init / forward / loss / prefill / decode, for the
-``DENSE``, ``SSM`` (RWKV6) and ``HYBRID`` (Jamba, without experts)
-families.
+``DENSE``, ``MOE``, ``SSM`` (RWKV6) and ``HYBRID`` (Jamba) families.
 
 Counterpart of ``repro/models/model.py``.  The reference stacks layer
 parameters and runs ``jax.lax.scan`` over them; here ``p["blocks"]`` is a
@@ -10,9 +9,10 @@ max_len, kv_dim]; RWKV6 ``tshift``/``cshift`` [L, B, d] and ``wkv``
 [L, B, H, D, D] (f32); hybrid ``k``/``v`` [nb, B, max_len, kv_dim],
 ``conv`` [nb, n_mamba, B, K-1, di] and ``ssm`` [nb, n_mamba, B, di, N]
 (f32); all with a per-slot ``index`` [B] (int32).  ``cache_batch_axes``
-says which axis of each entry is the batch.  Grads and remat wait for the
-training slice; MoE and the other families for their own slices
-(ROADMAP).
+says which axis of each entry is the batch.  ``MOE`` runs the ``DENSE``
+branches (its blocks hold ``moe`` in place of ``mlp``, and their aux
+losses reach ``loss_fn``).  Grads and remat wait for the training slice;
+the other families for their own slices (ROADMAP).
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config.base import DENSE, HYBRID, SSM, ModelConfig
+from repro_torch.config.base import DENSE, HYBRID, MOE, SSM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import hybrid as HY
@@ -33,7 +33,7 @@ Batch = Dict[str, torch.Tensor]
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in (DENSE, SSM, HYBRID):
+    if cfg.family not in (DENSE, MOE, SSM, HYBRID):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; ROADMAP.md lists the "
             "slice that ports it")
@@ -201,7 +201,7 @@ def prefill(cfg: ModelConfig, p: Params, batch: Batch, max_len: int,
     elif cfg.family == HYBRID:
         ents = []
         for lp in p["blocks"]:
-            h, ent = HY.superblock_prefill(cfg, lp, h, positions)
+            h, ent, _ = HY.superblock_prefill(cfg, lp, h, positions)
             ents.append(ent)
         cache = _embed_cache(cfg, ents, h.shape[0], max_len)
         cache["conv"] = torch.stack([e["conv"] for e in ents]).to(

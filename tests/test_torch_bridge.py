@@ -71,3 +71,26 @@ def test_mismatched_tree_raises():
     with pytest.raises(ValueError, match="num_layers"):
         params_from_numpy(tcfg.replace(num_layers=3, tie_embeddings=True),
                           tree, "cpu")
+
+
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "dbrx-132b"])
+def test_moe_leaves_round_trip(arch, param_dtype):
+    """MoE blocks: ``blocks/moe/*`` stacked [L, ...] in place of
+    ``blocks/mlp/*``, each layer a view, the router f32 under bf16."""
+    jcfg, tcfg = configs(arch, param_dtype=param_dtype)
+    jp, tp = params(jcfg, tcfg)
+    want = _numpy_tree(jp)
+    names = [_path_str(p) for p, _ in _leaf_paths(jp)]
+    assert sorted(names) == sorted(leaf_names(tcfg))
+    assert "blocks/moe/router" in names and "blocks/mlp/wo" not in names
+    m = tcfg.moe
+    assert want["blocks"]["moe"]["wi_up"].shape == \
+        (tcfg.num_layers, m.num_experts, tcfg.d_model, m.d_ff_expert)
+    moe1 = tp["blocks"][1]["moe"]
+    assert moe1["router"].dtype == torch.float32
+    assert moe1["wo"].dtype == getattr(torch, param_dtype)
+    assert moe1["wi_gate"].is_contiguous()
+    np.testing.assert_array_equal(moe1["router"].numpy(),
+                                  want["blocks"]["moe"]["router"][1])
+    _assert_trees_equal(params_to_numpy(tcfg, tp), want)

@@ -1,11 +1,12 @@
-"""Port's hybrid family (Jamba without experts: forward / loss / prefill /
-decode) vs the JAX package's, on the CPU; serving is in
+"""Port's hybrid family (Jamba without and with experts: forward / loss /
+prefill / decode) vs the JAX package's, on the CPU; serving is in
 ``test_torch_hybrid_serve.py``.
 
 Both packages run the same JAX-made parameters (bridged through numpy) on
-the same numpy token batches of the tiny ``jamba-1.5-large-398b`` with
-``moe=None`` (one superblock of 8 layers, d_model 64, d_inner 128,
-d_state 8).  Parity runs in f32 at 1e-4 unless a test says otherwise;
+the same numpy token batches of the tiny ``jamba-1.5-large-398b``, most
+tests with ``moe=None`` (one superblock of 8 layers, d_model 64, d_inner
+128, d_state 8), the ``with_experts`` ones with its 4 MoE layers (8
+experts, top-2).  Parity runs in f32 at 1e-4 unless a test says otherwise;
 the JAX ``pallas`` scan runs in interpret mode.  Prompt lengths stay
 below 256, where the reference's chunked scan takes any length.
 """
@@ -26,7 +27,7 @@ from repro.models import forward as jforward
 from repro.models import loss_fn as jloss_fn
 from repro.models import prefill as jprefill
 from repro_torch.bridge import leaf_names, params_to_numpy
-from repro_torch.configs import get_config, get_tiny_config
+from repro_torch.configs import get_config
 from repro_torch.kernels import ops as tops
 from repro_torch.models import (
     decode_step, forward, init_cache, init_params, loss_fn, prefill,
@@ -218,14 +219,97 @@ def test_init_matches_reference_shapes_and_dtypes():
     assert 9e-4 <= dt.min() and dt.max() <= 0.11
 
 
-def test_experts_raise_naming_roadmap():
-    """The published config has experts; MoE waits for slice (c)."""
-    cfg = get_tiny_config(ARCH)
-    assert cfg.is_moe
-    with pytest.raises(NotImplementedError, match="ROADMAP port slice"):
-        init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache(cfg, 1, 8, "cpu")
+def test_experts_sit_at_the_references_positions():
+    """The published config has experts on odd positions: a superblock
+    holds 4 MLP and 4 MoE layers, in the reference's order."""
+    from repro.models.hybrid import _positions as jpositions
+    from repro_torch.models.hybrid import _positions, n_moe
+    jcfg, tcfg = configs(ARCH)
+    assert tcfg.is_moe and _positions(tcfg) == jpositions(jcfg)
+    assert [f for _, f in _positions(tcfg)] == ["mlp", "moe"] * 4
+    p = init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    assert n_moe(tcfg) == 4
+    assert len(p["blocks"][0]["moe"]) == len(p["blocks"][0]["mlp"]) == 4
+    assert sorted(init_cache(tcfg, 1, 8, "cpu")) == sorted(CACHE_KEYS +
+                                                           ("index",))
+
+
+@pytest.mark.parametrize("scan_impl", ["xla", "pallas"])
+def test_forward_and_loss_with_experts_match_jax(scan_impl):
+    """Jamba with its experts: the Mamba scan and the MoE expert products
+    both follow scan_impl; the four MoE layers' aux losses are summed."""
+    jcfg, tcfg = configs(ARCH, dtype="float32", scan_impl=scan_impl)
+    jp, tp = params(jcfg, tcfg)
+    jb, tb = _with_targets(tcfg, *batches(tcfg, 2, 64))
+    jl, ja = jax.jit(lambda p, b: jforward(jcfg, p, b))(jp, jb)
+    tl, ta = forward(tcfg, tp, tb)
+    np.testing.assert_allclose(f32(tl), f32(jl), **TOL)
+    assert float(ta) > 0.0
+    np.testing.assert_allclose(float(ta), float(ja), rtol=1e-5)
+    jtotal, jm = jax.jit(lambda p, b: jloss_fn(jcfg, p, b))(jp, jb)
+    ttotal, tm = loss_fn(tcfg, tp, tb)
+    np.testing.assert_allclose(f32(ttotal), f32(jtotal), **TOL)
+    for name in ("ce", "z", "aux", "tokens"):
+        np.testing.assert_allclose(f32(tm[name]), f32(jm[name]), **TOL)
+
+
+@pytest.mark.parametrize("scan_impl", ["xla", "pallas"])
+def test_prefill_and_decode_with_experts_match_jax(scan_impl):
+    jcfg, tcfg = configs(ARCH, dtype="float32", scan_impl=scan_impl)
+    jp, tp = params(jcfg, tcfg, seed=1)
+    jb, tb = batches(tcfg, 2, 12, seed=1)
+    jl, jc = jprefill(jcfg, jp, jb, max_len=20)
+    tl, tc = prefill(tcfg, tp, tb, max_len=20)
+    np.testing.assert_allclose(f32(tl), f32(jl), **TOL)
+    for name in CACHE_KEYS:
+        np.testing.assert_allclose(f32(tc[name]), f32(jc[name]), **TOL)
+    jstep = jax.jit(lambda p, t, c: jdecode(jcfg, p, t, c))
+    toks = np.array([[3], [7]], np.int32)
+    for _ in range(3):
+        jl, jc = jstep(jp, jnp.asarray(toks), jc)
+        tl, tc = decode_step(tcfg, tp, torch.from_numpy(toks).long(), tc)
+        np.testing.assert_allclose(f32(tl), f32(jl), **TOL)
+        toks = np.array(jnp.argmax(jl[:, 0], -1), np.int32)[:, None]
+    for name in CACHE_KEYS:
+        np.testing.assert_allclose(f32(tc[name]), f32(jc[name]), **TOL)
+
+
+def test_decode_with_experts_matches_forward():
+    """prefill(S-1) + decode == forward(S)[-1] with experts, where
+    capacity_factor=8 (at least E / k = 4 here) gives C >= T, room for
+    every token (capacity depends on how many tokens are routed together,
+    in the reference too)."""
+    _, cfg = configs(ARCH, dtype="float32", scan_impl="pallas")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    _, p = params(*configs(ARCH, dtype="float32"), seed=2)
+    _, batch = batches(cfg, 2, 21, seed=2)
+    logits, _ = forward(cfg, p, batch)
+    _, cache = prefill(cfg, p, {k: v[:, :-1] for k, v in batch.items()},
+                       max_len=32)
+    dec, _ = decode_step(cfg, p, batch["tokens"][:, -1:], cache)
+    np.testing.assert_allclose(f32(dec[:, 0]), f32(logits[:, -1]), **TOL)
+
+
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_bridge_round_trip_with_experts(param_dtype):
+    """MoE leaves stack [nb, n_moe, ...], the MLP list shrinks to n_mlp,
+    and the router stays f32."""
+    jcfg, tcfg = configs(ARCH, param_dtype=param_dtype)
+    jp, tp = params(jcfg, tcfg)
+    want = {_path_str(q): np.asarray(x) for q, x in _leaf_paths(jp)}
+    assert sorted(want) == sorted(leaf_names(tcfg))
+    assert want["blocks/moe/wi_gate"].shape == (1, 4, 8, 64, 64)
+    assert want["blocks/mlp/wo"].shape[:2] == (1, 4)
+    assert tp["blocks"][0]["moe"][3]["router"].dtype == torch.float32
+    np.testing.assert_array_equal(
+        f32(tp["blocks"][0]["moe"][2]["wo"]),
+        want["blocks/moe/wo"][0, 2].astype(np.float32))
+    got = {_path_str(q): x
+           for q, x in _leaf_paths(params_to_numpy(tcfg, tp))}
+    for name, a in want.items():
+        assert got[name].dtype == a.dtype and got[name].shape == a.shape
+        np.testing.assert_array_equal(got[name].view(np.uint8),
+                                      a.view(np.uint8), err_msg=name)
 
 
 def test_config_matches_reference_field_by_field():

@@ -1,5 +1,5 @@
-"""The CUDA kernels (flash attention, WKV6 scan, selective scan) against
-their plain versions, on the card.
+"""The CUDA kernels (flash attention, WKV6 scan, selective scan, grouped
+matmul) against their plain versions, on the card.
 
 Skips without a CUDA card.  On the card (no JAX needed):
 
@@ -11,6 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import gmm as tgmm
 from repro_torch.kernels import mamba_scan as tmb
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rwkv6_scan as trw
@@ -140,3 +141,61 @@ def test_mamba_scan_kernel_matches_plain(B, S, di, N, dt):
     scale = float(np.abs(want).max()) + 1.0   # as tests/test_kernels.py, 1e-4
     np.testing.assert_allclose(got / scale, want / scale, rtol=1e-4,
                                atol=1e-4)
+
+
+def _gmm_scaled_err(got, want_f32):
+    """max |got - want| / max |want|, in f32."""
+    return float((got.float() - want_f32).abs().max()) / \
+        max(float(want_f32.abs().max()), 1e-30)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,K,N", [
+    ([128, 128, 128, 128], 64, 128),     # the JAX sweep's cases
+    ([100, 0, 300, 112], 64, 128),
+    ([0, 0, 512, 0], 64, 128),
+    ([1, 2, 3, 506], 64, 128),
+    ([5, 0, 70, 1, 300], 100, 200),      # K, N past whole tiles; not 8s
+    ([641] * 8, 2048, 768),              # capacity groups, gate/up widths
+    ([9, 9, 9], 768, 2048),              # decode groups, down widths
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_kernel_matches_plain(sizes, K, N, dtype):
+    """f32: scaled error 1e-5; bf16: one rounding of the f32 product
+    (2^-8 of the output scale, within 4e-3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator().manual_seed(sum(sizes) + K + N)
+    M, G = sum(sizes) + 7, len(sizes)       # 7 rows past the last group
+    lhs = torch.randn(M, K, generator=gen).to(getattr(torch, dtype)).cuda()
+    rhs = torch.randn(G, K, N, generator=gen).to(getattr(torch, dtype)).cuda()
+    gs = torch.tensor(sizes, dtype=torch.int32).cuda()
+    launches = tgmm.gmm.launches
+    got = tgmm.gmm(lhs, rhs, gs)
+    torch.cuda.synchronize()
+    assert tgmm.gmm.launches == launches + 1
+    assert got.dtype == lhs.dtype and got.shape == (M, N)
+    want = tgmm.gmm_plain(lhs.float(), rhs.float(), gs)
+    assert float(got[sum(sizes):].float().abs().max()) == 0.0
+    tol = 1e-5 if dtype == "float32" else 4e-3
+    assert _gmm_scaled_err(got, want) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,R,K,N", [(8, 641, 256, 96), (4, 9, 100, 40),
+                                     (3, 200, 64, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_equal_matches_einsum(G, R, K, N, dtype):
+    """The capacity layout: one launch against the f32 einsum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator().manual_seed(G * R + K)
+    x = torch.randn(G, R, K, generator=gen).to(getattr(torch, dtype)).cuda()
+    w = torch.randn(G, K, N, generator=gen).to(getattr(torch, dtype)).cuda()
+    launches = tgmm.gmm.launches
+    got = tops.gmm_equal(x, w)
+    torch.cuda.synchronize()
+    assert tgmm.gmm.launches == launches + 1 and got.shape == (G, R, N)
+    want = torch.einsum("grk,gkn->grn", x.float(), w.float())
+    tol = 1e-5 if dtype == "float32" else 4e-3
+    assert _gmm_scaled_err(got, want) <= tol
