@@ -12,7 +12,9 @@ Phases, each of which raises on failure (exit code != 0):
   3. kernel  - holds each kernel against its plain PyTorch version at the
                main paths' shapes and times kernel, plain version, the
                library call where one exists (a yardstick only; the port
-               never calls it) and the bound;
+               never calls it) and the bound; gmm's bf16 cases take the
+               wgmma route, time the mma.sync kernel beside it
+               (``prior_ms``) and check each launch's route;
   4. serve   - full-width qwen3-8b (bf16, seeded random weights) behind
                ServeEngine: 8 requests, 4 slots; checks the flash kernel's
                launch count, finite logits, and the prefill logits against
@@ -46,10 +48,11 @@ Phases, each of which raises on failure (exit code != 0):
                "pallas") over 4 x 2048 seeded tokens through forward and
                loss_fn: 144 gmm and 48 flash launches each, finite logits
                and loss, the bf16 distance to the plain path (einsum and
-               plain attention) printed;
+               plain attention) printed; every gmm launch on the wgmma
+               route;
  11. serve   - the same model behind ServeEngine with the qwen3-8b
-               traffic: 144 gmm launches a prefill and a decode tick, 48
-               flash launches a prefill;
+               traffic: 144 gmm launches (wgmma route) a prefill and a
+               decode tick, 48 flash launches a prefill;
  12. f32     - the same model at 4 layers in f32: the kernel path (gmm +
                flash) against the plain path within 1e-4 of the logits'
                scale, every routing difference between the two printed by
@@ -839,7 +842,10 @@ def gmm_cases(torch, gm):
     same inputs: scaled error (max |diff| / max |want|) within 1e-5 in
     f32, and within 4e-3 in bf16, where the kernel rounds the f32 sum once
     (2^-8 = 0.0039 of a value at most).  ``max_err`` is against the plain
-    version in the same dtype (a bf16 rounding may land one ulp apart)."""
+    version in the same dtype (a bf16 rounding may land one ulp apart).
+    Each launch must take the route that ``gm.route`` names; where that is
+    the wgmma route, ``prior_ms`` times the mma.sync kernel on the same
+    inputs (the design it replaced on that route)."""
     import numpy as np
     E = 128
     cases = []
@@ -860,6 +866,20 @@ def gmm_cases(torch, gm):
                       K=1000, N=1000, equal=False))
     cases.append(dict(case="unaligned", sizes=[5, 0, 70, 1, 300], K=100,
                       N=90, equal=False))
+    # the wgmma route's edges: half tiles and group ends at every offset
+    # of a 64-row unit, K past BK and N past BN, and more groups than one
+    # scan chunk of 384
+    cases.append(dict(case="half tiles",
+                      sizes=[0, 1, 63, 64, 65, 127, 128, 129, 641], K=256,
+                      N=384, equal=False))
+    cases.append(dict(case="K 200, N 136", sizes=[5, 0, 70, 1, 300], K=200,
+                      N=136, equal=False))
+    cases.append(dict(case="300 groups",
+                      sizes=[(g * 7) % 23 for g in range(300)], K=64, N=128,
+                      equal=False))
+    cases.append(dict(case="1000 groups",
+                      sizes=[(g * 5) % 11 for g in range(1000)], K=72, N=64,
+                      equal=False))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     results = []
@@ -873,19 +893,30 @@ def gmm_cases(torch, gm):
             rhs = (torch.randn(G, K, N, generator=gen, device="cuda")
                    * K ** -0.5).to(dt)
             gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+            kernel = gm.route(dt, K, N, G)
             if c["equal"]:
                 x = lhs.view(G, sizes[0], K)
 
                 def run():
                     return gm.gmm_equal(x, rhs).view(M, N)
 
+                def prior():
+                    return gm._launch(lhs, rhs, None, sizes[0], "mma_sync")
+
                 def library():
                     return torch.bmm(x, rhs)
             else:
                 def run():
                     return gm.gmm(lhs, rhs, gs)
+
+                def prior():
+                    return gm._launch(lhs, rhs, gs, 0, "mma_sync")
                 library = None
+            by_route = gm.gmm.route_launches[kernel]
             out = run()
+            if gm.gmm.route_launches[kernel] != by_route + 1:
+                raise AssertionError(f"{c['case']} {dtype} did not launch "
+                                     f"the {kernel} kernel")
             want = gm.gmm_plain(lhs.float(), rhs.float(), gs)
             plain = gm.gmm_plain(lhs, rhs, gs)
             torch.cuda.synchronize()
@@ -902,21 +933,31 @@ def gmm_cases(torch, gm):
                                      f"{err} > {tol} or tail {tail}")
             max_err = float((out.float() - plain.float()).abs().max())
             kernel_ms = cuda_ms(torch, run, iters=20)
+            prior_ms = (cuda_ms(torch, prior, iters=20)
+                        if kernel == "wgmma" else None)
             plain_ms = cuda_ms(torch, lambda: gm.gmm_plain(lhs, rhs, gs),
                                iters=3, warmup=1)
             library_ms = (cuda_ms(torch, library, iters=20)
                           if library is not None else None)
             bound_ms, bound_by, work = gmm_bound(sizes, M, K, N, dtype)
-            res = dict(case=c["case"], dtype=dtype, G=G, M=M, K=K, N=N,
-                       rows=sum(sizes), empty_groups=sizes.count(0),
-                       sizes=sizes if G <= 8 else f"{G} groups",
+            res = dict(case=c["case"], dtype=dtype, route=kernel, G=G, M=M,
+                       K=K, N=N, rows=sum(sizes), empty_groups=sizes.count(0),
+                       sizes=sizes if G <= 9 else f"{G} groups",
                        max_err=max_err, checked_err=err, tol=tol,
-                       kernel_ms=kernel_ms, plain_ms=plain_ms,
+                       kernel_ms=kernel_ms, prior_ms=prior_ms,
+                       plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bound_ms,
                        bound_by=bound_by, **work)
             results.append(res)
             print("kernel case gmm " + json.dumps(res), flush=True)
             del lhs, rhs, out, want, plain
+    print("gmm at the MoE shapes, bf16 (ms): case, wgmma, mma.sync, "
+          "torch.bmm, bound", flush=True)
+    for r in results:
+        if r["dtype"] == "bfloat16" and r["library_ms"] is not None:
+            print(f"  {r['case']:16s} {r['kernel_ms']:.4f} "
+                  f"{r['prior_ms']:.4f} {r['library_ms']:.4f} "
+                  f"{r['bound_ms']:.4f}", flush=True)
     return results
 
 
@@ -934,14 +975,17 @@ def moe_forward(torch, card: str, cfg, params):
     torch.cuda.reset_peak_memory_stats()
 
     gm.gmm.launches = fa.flash_attention.launches = 0
+    gm.gmm.route_launches = dict.fromkeys(gm.ROUTES, 0)
     t = time.perf_counter()
     logits, aux = forward(cfg, params, batch)
     torch.cuda.synchronize()
     forward_ms = (time.perf_counter() - t) * 1e3
     launches = (gm.gmm.launches, fa.flash_attention.launches)
-    if launches != (3 * L, L):
+    by_route = dict(gm.gmm.route_launches)
+    if launches != (3 * L, L) or by_route["wgmma"] != 3 * L:
         raise AssertionError(f"one forward launched (gmm, flash) = "
-                             f"{launches}, want {(3 * L, L)}")
+                             f"{launches}, want {(3 * L, L)}, gmm by route "
+                             f"{gm.gmm.route_launches}, want all wgmma")
     if tuple(logits.shape) != (B, S, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()) or \
             not float(aux) > 0.0:
@@ -951,8 +995,10 @@ def moe_forward(torch, card: str, cfg, params):
     loss, metrics = loss_fn(cfg, params, batch)
     torch.cuda.synchronize()
     loss_ms = (time.perf_counter() - t) * 1e3
-    if (gm.gmm.launches, fa.flash_attention.launches) != (6 * L, 2 * L):
-        raise AssertionError("loss_fn did not run each kernel per layer")
+    if (gm.gmm.launches, fa.flash_attention.launches) != (6 * L, 2 * L) \
+            or gm.gmm.route_launches["wgmma"] != 6 * L:
+        raise AssertionError("loss_fn did not run each kernel per layer, "
+                             "gmm on the wgmma route")
     if not bool(torch.isfinite(loss)):
         raise AssertionError(f"non-finite loss {float(loss)}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -968,6 +1014,7 @@ def moe_forward(torch, card: str, cfg, params):
                tokens_per_s=B * S / forward_ms * 1e3, loss_fn_ms=loss_ms,
                loss=float(loss), ce=float(metrics["ce"]),
                aux=float(metrics["aux"]), gmm_launches=launches[0],
+               gmm_launches_by_route=by_route,
                flash_launches=launches[1], max_memory_allocated_gb=peak_gb,
                bf16_kernel_vs_plain_path_max_err=bf16_err,
                max_abs_logit=float(logits.float().abs().max()), profile=prof)
@@ -983,16 +1030,19 @@ def moe_serve(torch, card: str, cfg, params):
     prompts = prompts_for(cfg)
     L = cfg.num_layers
     gm.gmm.launches = fa.flash_attention.launches = 0
+    gm.gmm.route_launches = dict.fromkeys(gm.ROUTES, 0)
     _, res = drive_engine(torch, cfg, params, prompts)
     launches = (gm.gmm.launches, fa.flash_attention.launches)
     want = (3 * L * (len(prompts) + res["ticks"]), L * len(prompts))
-    if launches != want:
+    if launches != want or gm.gmm.route_launches["wgmma"] != want[0]:
         raise AssertionError(f"serving launched (gmm, flash) = {launches}, "
-                             f"want {want}")
+                             f"want {want}; gmm by route "
+                             f"{gm.gmm.route_launches}, want all wgmma")
+    by_route = dict(gm.gmm.route_launches)
     prof = profile_ticks(torch, cfg, params, prompts)
     res = dict(card=card, arch=cfg.name, layers=L, **res,
-               gmm_launches=launches[0], flash_launches=launches[1],
-               profile=prof)
+               gmm_launches=launches[0], gmm_launches_by_route=by_route,
+               flash_launches=launches[1], profile=prof)
     print("serve " + json.dumps(res), flush=True)
     return res
 
@@ -1041,8 +1091,10 @@ def moe_f32(torch, card: str, cfg):
     moe_mod._moe_tokens = recording
     try:
         n0 = gm.gmm.launches
+        f0 = gm.gmm.route_launches["mma_sync"]
         lo_k = forward(c32, p32, batch)[0]
-        if gm.gmm.launches != n0 + 3 * MOE_F32_LAYERS:
+        if gm.gmm.launches != n0 + 3 * MOE_F32_LAYERS or \
+                gm.gmm.route_launches["mma_sync"] != f0 + 3 * MOE_F32_LAYERS:
             raise AssertionError("the f32 forward did not run the f32 gmm")
         lo_x = forward(c32.replace(scan_impl="xla", attention_impl="xla"),
                        p32, batch)[0]
@@ -1235,6 +1287,8 @@ def main() -> int:
                 and c["S"] == RWKV_SEQ)
     mbig = mcases[0]    # (4, 2048, 16384, 16), the jamba forward's shape
     gbig = gcases[0]    # bf16, 128 x 641 rows, 2048 -> 768: the forward's
+    if gbig["route"] != "wgmma" or gbig["prior_ms"] is None:
+        raise AssertionError(f"the forward's gmm shape took {gbig['route']}")
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -1287,6 +1341,7 @@ def main() -> int:
         "max_abs_err": max(c["max_err"] for c in gcases),
         "max_err": max(c["max_err"] for c in gcases),
         "ms": gbig["kernel_ms"],
+        "prior_ms": gbig["prior_ms"],
         "plain_ms": gbig["plain_ms"],
         "bound_ms": gbig["bound_ms"],
         "bound_by": gbig["bound_by"],

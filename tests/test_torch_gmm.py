@@ -100,6 +100,32 @@ def test_bf16_plain_rounds_once_from_f32():
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype,K,N,G,want", [
+    (torch.bfloat16, 2048, 768, 128, "wgmma"),     # qwen3-moe gate/up
+    (torch.bfloat16, 768, 2048, 128, "wgmma"),     # and down
+    (torch.bfloat16, 200, 136, 5, "wgmma"),        # past whole tiles
+    (torch.bfloat16, 8, 8, 2048, "wgmma"),
+    (torch.bfloat16, 100, 90, 5, "mma_sync"),      # element-wise staging
+    (torch.bfloat16, 100, 128, 5, "mma_sync"),     # K not a multiple of 8
+    (torch.bfloat16, 128, 90, 5, "mma_sync"),      # N not a multiple of 8
+    (torch.bfloat16, 0, 128, 5, "mma_sync"),       # nothing to sum
+    (torch.bfloat16, 64, 128, 2049, "mma_sync"),   # more groups than smem
+    (torch.float32, 2048, 768, 128, "mma_sync"),   # f32: the FMA kernel
+    (torch.float32, 64, 128, 4, "mma_sync"),
+])
+def test_route_takes_wgmma_for_bf16_that_tma_can_address(dtype, K, N, G,
+                                                         want):
+    assert tgmm.route(dtype, K, N, G) == want
+
+
+def test_aligned_copies_only_a_base_that_tma_cannot_address():
+    t = torch.arange(40, dtype=torch.float32).bfloat16()
+    assert tgmm._aligned(t) is t
+    view = t[1:33]                      # contiguous, 2 bytes past the base
+    got = tgmm._aligned(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+
+
 def test_check_rejects_what_the_kernel_does_not_take():
     lhs, rhs = torch.zeros(8, 4), torch.zeros(2, 4, 3)
     gs = torch.tensor([4, 4], dtype=torch.int32)

@@ -158,11 +158,18 @@ def _gmm_scaled_err(got, want_f32):
     ([5, 0, 70, 1, 300], 100, 200),      # K, N past whole tiles; not 8s
     ([641] * 8, 2048, 768),              # capacity groups, gate/up widths
     ([9, 9, 9], 768, 2048),              # decode groups, down widths
+    ([641] * 4, 768, 2048),              # qwen3-moe shapes at 4 experts
+    ([161] * 4, 2048, 768),
+    ([0, 1, 63, 64, 65, 127, 128, 129, 641], 256, 384),   # half tiles
+    ([5, 0, 70, 1, 300], 200, 136),      # K past BK, N past BN: 8s
+    ([(g * 7) % 23 for g in range(300)], 64, 128),       # 300 groups
+    ([(g * 5) % 11 for g in range(1000)], 72, 64),       # 3 scan chunks
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gmm_kernel_matches_plain(sizes, K, N, dtype):
     """f32: scaled error 1e-5; bf16: one rounding of the f32 product
-    (2^-8 of the output scale, within 4e-3)."""
+    (2^-8 of the output scale, within 4e-3).  The launch goes through the
+    route that ``tgmm.route`` names for the dtype and shape."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator().manual_seed(sum(sizes) + K + N)
@@ -171,9 +178,12 @@ def test_gmm_kernel_matches_plain(sizes, K, N, dtype):
     rhs = torch.randn(G, K, N, generator=gen).to(getattr(torch, dtype)).cuda()
     gs = torch.tensor(sizes, dtype=torch.int32).cuda()
     launches = tgmm.gmm.launches
+    kernel = tgmm.route(lhs.dtype, K, N, G)
+    by_route = tgmm.gmm.route_launches[kernel]
     got = tgmm.gmm(lhs, rhs, gs)
     torch.cuda.synchronize()
     assert tgmm.gmm.launches == launches + 1
+    assert tgmm.gmm.route_launches[kernel] == by_route + 1
     assert got.dtype == lhs.dtype and got.shape == (M, N)
     want = tgmm.gmm_plain(lhs.float(), rhs.float(), gs)
     assert float(got[sum(sizes):].float().abs().max()) == 0.0
@@ -183,7 +193,9 @@ def test_gmm_kernel_matches_plain(sizes, K, N, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("G,R,K,N", [(8, 641, 256, 96), (4, 9, 100, 40),
-                                     (3, 200, 64, 128)])
+                                     (3, 200, 64, 128), (4, 641, 768, 2048),
+                                     (4, 9, 2048, 768), (5, 64, 200, 136),
+                                     (12, 100, 200, 384)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gmm_equal_matches_einsum(G, R, K, N, dtype):
     """The capacity layout: one launch against the f32 einsum."""
@@ -193,9 +205,12 @@ def test_gmm_equal_matches_einsum(G, R, K, N, dtype):
     x = torch.randn(G, R, K, generator=gen).to(getattr(torch, dtype)).cuda()
     w = torch.randn(G, K, N, generator=gen).to(getattr(torch, dtype)).cuda()
     launches = tgmm.gmm.launches
+    kernel = tgmm.route(x.dtype, K, N, G)
+    by_route = tgmm.gmm.route_launches[kernel]
     got = tops.gmm_equal(x, w)
     torch.cuda.synchronize()
     assert tgmm.gmm.launches == launches + 1 and got.shape == (G, R, N)
+    assert tgmm.gmm.route_launches[kernel] == by_route + 1
     want = torch.einsum("grk,gkn->grn", x.float(), w.float())
     tol = 1e-5 if dtype == "float32" else 4e-3
     assert _gmm_scaled_err(got, want) <= tol
