@@ -12,15 +12,21 @@ Phases, each of which raises on failure (exit code != 0):
   3. kernel  - holds each kernel against its plain PyTorch version at the
                main paths' shapes and times kernel, plain version, the
                library call where one exists (a yardstick only; the port
-               never calls it) and the bound; gmm's bf16 cases take the
-               wgmma route, time the mma.sync kernel beside it
-               (``prior_ms``) and check each launch's route;
+               never calls it) and the bound; flash and gmm check each
+               launch's route, and on their wgmma routes time the mma.sync
+               kernel beside it (``prior_ms``); flash's inputs are model-
+               layout views, and SDPA is timed masked and, where it is the
+               same function, ``is_causal``; then each kernel wrapper must
+               raise on an input that requires grad under grad mode;
   4. serve   - full-width qwen3-8b (bf16, seeded random weights) behind
                ServeEngine: 8 requests, 4 slots; checks the flash kernel's
-               launch count, finite logits, and the prefill logits against
-               the plain-attention path of the same model (in f32
-               activations; the bf16 distances are printed); then profiles
-               one decode tick and one tick with a 2048-token prefill;
+               launch count (all on the wgmma route), finite logits, and
+               the prefill logits against the plain-attention path of the
+               same model (in f32 activations, on the f32 route; the bf16
+               distances are printed); then profiles one decode tick and
+               one tick with a 2048-token prefill; then the launcher
+               ``serve --tiny`` for qwen3-8b, dbrx-132b and jamba (head dim
+               16: the flash kernel's mma.sync route);
   5. forward - full-width, full-depth rwkv6-3b (bf16, seed 0,
                scan_impl="pallas") over 4 x 2048 seeded tokens through
                forward and loss_fn: 32 WKV6 kernel launches each, finite
@@ -34,8 +40,9 @@ Phases, each of which raises on failure (exit code != 0):
   7. forward - full-width jamba-1.5-large-398b without experts (moe=None;
                16 of its 72 layers, bf16, seed 0, scan_impl="pallas") over
                4 x 2048 seeded tokens through forward and loss_fn: 14
-               selective-scan and 2 flash launches each, finite logits and
-               loss, the bf16 distance to the plain scan path printed;
+               selective-scan and 2 flash (wgmma) launches each, finite
+               logits and loss, the bf16 distance to the plain scan path
+               printed;
   8. serve   - the same model behind ServeEngine with the qwen3-8b traffic:
                2 flash launches a prefill and no scan launch (prefill takes
                the state-returning scan), every admitted slot's cache equal
@@ -48,8 +55,8 @@ Phases, each of which raises on failure (exit code != 0):
                "pallas") over 4 x 2048 seeded tokens through forward and
                loss_fn: 144 gmm and 48 flash launches each, finite logits
                and loss, the bf16 distance to the plain path (einsum and
-               plain attention) printed; every gmm launch on the wgmma
-               route;
+               plain attention) printed; every gmm and flash launch on its
+               wgmma route;
  11. serve   - the same model behind ServeEngine with the qwen3-8b
                traffic: 144 gmm launches (wgmma route) a prefill and a
                decode tick, 48 flash launches a prefill;
@@ -145,7 +152,15 @@ def attention_bound(B, Hq, Hkv, Sq, Skv, D, causal, q_offset, dtype_name):
 
 
 def kernel_cases(torch, fa):
-    """Flash kernel vs plain version on the card; one dict per case."""
+    """Flash kernel vs plain version on the card; one dict per case.
+
+    Inputs are [B,S,H,D] tensors handed to the wrapper as transposed
+    views, as ``ops.flash_attention`` hands them over.  Each launch must
+    take the route that ``fa.route`` names; where that is the wgmma route,
+    ``prior_ms`` times the mma.sync kernel on the same inputs (the design
+    it replaced on that route).  The masked SDPA call computes the same
+    function for every case; ``is_causal`` SDPA only where q_offset = 0
+    and Sq = Skv (it aligns the mask to the top left)."""
     import torch.nn.functional as F
     cases = []
     for s in (128, 1024, 2048, 777):
@@ -160,6 +175,12 @@ def kernel_cases(torch, fa):
     # jamba's attention layer in its forward: 64 query heads, 8 kv heads
     cases.append(dict(B=4, Hq=64, Hkv=8, Sq=2048, Skv=2048, D=128,
                       causal=True, q_offset=0, dtype="bfloat16"))
+    # qwen3-moe's attention layer in its forward: 32 query heads, 4 kv heads
+    cases.append(dict(B=4, Hq=32, Hkv=4, Sq=2048, Skv=2048, D=128,
+                      causal=True, q_offset=0, dtype="bfloat16"))
+    # the tiny configs' head dim, on the mma.sync route
+    cases.append(dict(B=2, Hq=4, Hkv=2, Sq=300, Skv=300, D=16, causal=True,
+                      q_offset=0, dtype="bfloat16"))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     results = []
@@ -167,16 +188,22 @@ def kernel_cases(torch, fa):
         dt = getattr(torch, c["dtype"])
         tol = 2e-2 if c["dtype"] == "bfloat16" else 2e-5
 
-        def rnd(*shape):
-            return torch.randn(*shape, generator=gen, device="cuda",
-                               dtype=torch.float32).to(dt)
+        def rnd(S, H):
+            return torch.randn(c["B"], S, H, c["D"], generator=gen,
+                               device="cuda", dtype=torch.float32
+                               ).to(dt).transpose(1, 2)
 
-        q = rnd(c["B"], c["Hq"], c["Sq"], c["D"])
-        k = rnd(c["B"], c["Hkv"], c["Skv"], c["D"])
-        v = rnd(c["B"], c["Hkv"], c["Skv"], c["D"])
+        q = rnd(c["Sq"], c["Hq"])
+        k, v = rnd(c["Skv"], c["Hkv"]), rnd(c["Skv"], c["Hkv"])
         kw = dict(causal=c["causal"], q_offset=c["q_offset"])
+        kernel = fa.route(dt, c["D"])
+        by_route = fa.flash_attention.route_launches[kernel]
         out = fa.flash_attention(q, k, v, **kw)
+        if fa.flash_attention.route_launches[kernel] != by_route + 1:
+            raise AssertionError(f"{c} did not launch the {kernel} kernel")
         want = fa.flash_attention_plain(q, k, v, **kw)
+        want32 = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                          **kw)
         torch.cuda.synchronize()
         diff = (out.float() - want.float()).abs()
         max_err = float(diff.max())
@@ -185,7 +212,7 @@ def kernel_cases(torch, fa):
         if bool((diff > tol + tol * want.float().abs()).any()):
             raise AssertionError(f"kernel disagrees with plain version: {c}, "
                                  f"max_err={max_err}, tol={tol}")
-        # yardstick: one torch call for the same function (bool mask = keep)
+        # yardsticks: one torch call for the same function (bool mask = keep)
         mask = None
         if c["causal"]:
             qpos = c["q_offset"] + torch.arange(c["Sq"], device="cuda")
@@ -195,9 +222,18 @@ def kernel_cases(torch, fa):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
 
-        lib_err = float((library().float() - want.float()).abs().max())
+        def library_causal():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+        same_causal = c["causal"] and c["q_offset"] == 0 and \
+            c["Sq"] == c["Skv"]
+        err32 = lambda o: float((o.float() - want32).abs().max())
         kernel_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw),
                             iters=20)
+        prior_ms = (cuda_ms(torch, lambda: fa._launch(
+            q, k, v, c["causal"], c["q_offset"], "mma_sync"), iters=20)
+                    if kernel == "wgmma" else None)
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v,
                                                                    **kw),
                            iters=3, warmup=1)
@@ -205,13 +241,88 @@ def kernel_cases(torch, fa):
         bound_ms, bound_by = attention_bound(
             c["B"], c["Hq"], c["Hkv"], c["Sq"], c["Skv"], c["D"], c["causal"],
             c["q_offset"], c["dtype"])
-        r = dict(c, max_err=max_err, tol=tol, kernel_ms=kernel_ms,
-                 plain_ms=plain_ms, library_ms=library_ms,
-                 library_max_err=lib_err, bound_ms=bound_ms,
-                 bound_by=bound_by)
+        r = dict(c, route=kernel, max_err=max_err, tol=tol,
+                 max_err_vs_f32=err32(out), kernel_ms=kernel_ms,
+                 prior_ms=prior_ms, plain_ms=plain_ms, library_ms=library_ms,
+                 library_max_err=float((library().float() - want.float())
+                                       .abs().max()),
+                 library_max_err_vs_f32=err32(library()),
+                 library_causal_ms=(cuda_ms(torch, library_causal, iters=20)
+                                    if same_causal else None),
+                 library_causal_max_err_vs_f32=(err32(library_causal())
+                                                if same_causal else None),
+                 bound_ms=bound_ms, bound_by=bound_by)
         results.append(r)
         print("kernel case " + json.dumps(r), flush=True)
+    print("flash, bf16 (ms): B Hq/Hkv Sq, route, kernel, mma.sync, SDPA "
+          "masked, SDPA is_causal, bound", flush=True)
+    for r in results:
+        if r["dtype"] == "bfloat16":
+            print(f"  {r['B']} {r['Hq']}/{r['Hkv']} {r['Sq']:5d} "
+                  f"{r['route']:8s}"
+                  f" {r['kernel_ms']:.4f} {r['prior_ms'] or 0:.4f} "
+                  f"{r['library_ms']:.4f} {r['library_causal_ms'] or 0:.4f} "
+                  f"{r['bound_ms']:.4f}", flush=True)
     return results
+
+
+def grad_guard(torch, fa, rw, mb, gm):
+    """Each kernel wrapper raises on a CUDA input that requires grad under
+    grad mode (the kernels have no backward), and launches under
+    ``torch.no_grad()``."""
+    def t(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device="cuda", dtype=dtype)
+
+    calls = {
+        "flash_attention": (fa.flash_attention, lambda: (
+            t(1, 2, 64, 64, dtype=torch.bfloat16),
+            t(1, 2, 64, 64, dtype=torch.bfloat16),
+            t(1, 2, 64, 64, dtype=torch.bfloat16))),
+        "rwkv6_scan": (rw.rwkv6_scan, lambda: (
+            t(1, 2, 64, 64), t(1, 2, 64, 64), t(1, 2, 64, 64),
+            torch.rand(1, 2, 64, 64, device="cuda"), t(2, 64))),
+        "mamba_scan": (mb.mamba_scan, lambda: (
+            -torch.rand(32, 16, device="cuda"), torch.rand(1, 64, 32,
+                                                           device="cuda"),
+            t(1, 64, 16), t(1, 64, 16), t(1, 64, 32))),
+        "gmm": (gm.gmm, lambda: (
+            t(64, 64, dtype=torch.bfloat16),
+            t(2, 64, 64, dtype=torch.bfloat16),
+            torch.tensor([32, 32], dtype=torch.int32, device="cuda"))),
+    }
+    for name, (fn, make) in calls.items():
+        args = make()
+        args[0].requires_grad_(True)
+        try:
+            fn(*args)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} launched on an input that "
+                                 "requires grad")
+        with torch.no_grad():
+            fn(*args)
+    torch.cuda.synchronize()
+    print(f"grad guard: {len(calls)} wrappers raise under grad mode and run "
+          "under no_grad", flush=True)
+
+
+def reset_flash(fa):
+    """Zero the flash wrapper's launch counts, in all and by route."""
+    fa.flash_attention.launches = 0
+    fa.flash_attention.route_launches = dict.fromkeys(fa.ROUTES, 0)
+
+
+def flash_on_route(fa, want: int, what: str, route: str = "wgmma"):
+    """Since the last reset, ``want`` flash launches, each on ``route``;
+    returns the counts by route."""
+    got = dict(fa.flash_attention.route_launches)
+    if fa.flash_attention.launches != want or got[route] != want:
+        raise AssertionError(f"{what}: {fa.flash_attention.launches} flash "
+                             f"launches by route {got}, want {want}, all "
+                             f"{route}")
+    return got
 
 
 def to_f32(tree):
@@ -476,12 +587,12 @@ def serve(torch, card: str):
                                    attention_impl="pallas")
     params = seeded_params(torch, cfg)
     prompts = prompts_for(cfg)
-    fa.flash_attention.launches = 0
+    reset_flash(fa)
     eng, res = drive_engine(torch, cfg, params, prompts)
     launches = fa.flash_attention.launches
-    if launches != cfg.num_layers * len(prompts):
-        raise AssertionError(f"flash kernel launched {launches} times, want "
-                             f"{cfg.num_layers} x {len(prompts)} prefills")
+    by_route = flash_on_route(fa, cfg.num_layers * len(prompts),
+                              f"{cfg.name} serving ({cfg.num_layers} a "
+                              f"prefill, {len(prompts)} prefills)")
     del eng
 
     # The same prompt through the plain chunked attention path.  In bf16 the
@@ -503,11 +614,10 @@ def serve(torch, card: str):
                                                        params)
     p32 = to_f32(params)
     c32 = cfg.replace(dtype="float32", param_dtype="float32")
-    n0 = fa.flash_attention.launches
+    reset_flash(fa)
     lo_k32, lo_x32 = last_logits(c32, p32), last_logits(c32.replace(**xla),
                                                         p32)
-    if fa.flash_attention.launches != n0 + cfg.num_layers:
-        raise AssertionError("f32 prefill did not run the f32 kernel")
+    flash_on_route(fa, cfg.num_layers, "f32 prefill", route="f32")
     del p32
     parity_err = float((lo_k32 - lo_x32).abs().max())
     if bool(((lo_k32 - lo_x32).abs() > 5e-2 + 5e-2 * lo_x32.abs()).any()):
@@ -520,6 +630,7 @@ def serve(torch, card: str):
     prof = profile_ticks(torch, cfg, params, prompts)
 
     res = dict(card=card, arch=cfg.name, **res, flash_launches=launches,
+               flash_launches_by_route=by_route,
                prefill_parity_f32_max_err=parity_err,
                prefill_bf16_max_err=bf16_err, profile=prof)
     print("serve " + json.dumps(res), flush=True)
@@ -719,7 +830,8 @@ def jamba_forward(torch, card: str, cfg, params):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    mb.mamba_scan.launches = fa.flash_attention.launches = 0
+    mb.mamba_scan.launches = 0
+    reset_flash(fa)
     t = time.perf_counter()
     logits, _ = forward(cfg, params, batch)
     torch.cuda.synchronize()
@@ -728,6 +840,7 @@ def jamba_forward(torch, card: str, cfg, params):
     if launches != (n_mamba, nb):
         raise AssertionError(f"one forward launched (scan, flash) = "
                              f"{launches}, want {(n_mamba, nb)}")
+    by_route = flash_on_route(fa, nb, f"{cfg.name} forward")
     if tuple(logits.shape) != (B, S, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"bad forward logits {tuple(logits.shape)}")
@@ -752,6 +865,7 @@ def jamba_forward(torch, card: str, cfg, params):
                tokens_per_s=B * S / forward_ms * 1e3, loss_fn_ms=loss_ms,
                loss=float(loss), ce=float(metrics["ce"]),
                scan_launches=launches[0], flash_launches=launches[1],
+               flash_launches_by_route=by_route,
                max_memory_allocated_gb=peak_gb,
                bf16_kernel_vs_plain_path_max_err=bf16_err,
                max_abs_logit=float(logits.float().abs().max()), profile=prof)
@@ -766,12 +880,14 @@ def jamba_serve(torch, card: str, cfg, params):
     from repro_torch.kernels import mamba_scan as mb
     prompts = prompts_for(cfg)
     nb = cfg.num_layers // cfg.hybrid_period
-    mb.mamba_scan.launches = fa.flash_attention.launches = 0
+    mb.mamba_scan.launches = 0
+    reset_flash(fa)
     _, res = drive_engine(torch, cfg, params, prompts)
     launches = (mb.mamba_scan.launches, fa.flash_attention.launches)
     if launches != (0, nb * len(prompts)):
         raise AssertionError(f"serving launched (scan, flash) = {launches}, "
                              f"want {(0, nb * len(prompts))}")
+    flash_on_route(fa, nb * len(prompts), f"{cfg.name} serving")
     # a 2048-token prefill makes ~200k launches, too many to trace whole
     prof = profile_ticks(torch, cfg, params, prompts, prefill_len=512)
     res = dict(card=card, arch=cfg.name, layers=cfg.num_layers, **res,
@@ -784,6 +900,7 @@ def jamba_f32(torch, card: str, cfg):
     """At JAMBA_F32_LAYERS layers in f32: the kernel path against the plain
     scan path (within 1e-3 of the logits' scale), and prefill(S-1) +
     decode(1) against forward(S) on a 777-token prompt."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as mb
     from repro_torch.models import decode_step, forward, prefill
     c32 = cfg.replace(num_layers=JAMBA_F32_LAYERS, dtype="float32",
@@ -791,9 +908,12 @@ def jamba_f32(torch, card: str, cfg):
     p32 = seeded_params(torch, c32)
     batch = scoring_batch(torch, c32, RWKV_BATCH, RWKV_SEQ)
     n0 = mb.mamba_scan.launches
+    reset_flash(fa)
     lo_k = forward(c32, p32, batch)[0]
     if mb.mamba_scan.launches != n0 + JAMBA_F32_LAYERS - 1:
         raise AssertionError("the f32 forward did not run the f32 kernel")
+    flash_on_route(fa, JAMBA_F32_LAYERS // c32.hybrid_period, "f32 forward",
+                   route="f32")
     lo_x = forward(c32.replace(scan_impl="xla"), p32, batch)[0]
     parity = scaled_err(lo_k, lo_x)
     if parity > 1e-3:
@@ -974,8 +1094,9 @@ def moe_forward(torch, card: str, cfg, params):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    gm.gmm.launches = fa.flash_attention.launches = 0
+    gm.gmm.launches = 0
     gm.gmm.route_launches = dict.fromkeys(gm.ROUTES, 0)
+    reset_flash(fa)
     t = time.perf_counter()
     logits, aux = forward(cfg, params, batch)
     torch.cuda.synchronize()
@@ -986,6 +1107,7 @@ def moe_forward(torch, card: str, cfg, params):
         raise AssertionError(f"one forward launched (gmm, flash) = "
                              f"{launches}, want {(3 * L, L)}, gmm by route "
                              f"{gm.gmm.route_launches}, want all wgmma")
+    flash_by_route = flash_on_route(fa, L, f"{cfg.name} forward")
     if tuple(logits.shape) != (B, S, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()) or \
             not float(aux) > 0.0:
@@ -996,7 +1118,8 @@ def moe_forward(torch, card: str, cfg, params):
     torch.cuda.synchronize()
     loss_ms = (time.perf_counter() - t) * 1e3
     if (gm.gmm.launches, fa.flash_attention.launches) != (6 * L, 2 * L) \
-            or gm.gmm.route_launches["wgmma"] != 6 * L:
+            or gm.gmm.route_launches["wgmma"] != 6 * L \
+            or fa.flash_attention.route_launches["wgmma"] != 2 * L:
         raise AssertionError("loss_fn did not run each kernel per layer, "
                              "gmm on the wgmma route")
     if not bool(torch.isfinite(loss)):
@@ -1015,7 +1138,9 @@ def moe_forward(torch, card: str, cfg, params):
                loss=float(loss), ce=float(metrics["ce"]),
                aux=float(metrics["aux"]), gmm_launches=launches[0],
                gmm_launches_by_route=by_route,
-               flash_launches=launches[1], max_memory_allocated_gb=peak_gb,
+               flash_launches=launches[1],
+               flash_launches_by_route=flash_by_route,
+               max_memory_allocated_gb=peak_gb,
                bf16_kernel_vs_plain_path_max_err=bf16_err,
                max_abs_logit=float(logits.float().abs().max()), profile=prof)
     print("forward " + json.dumps(res), flush=True)
@@ -1029,8 +1154,9 @@ def moe_serve(torch, card: str, cfg, params):
     from repro_torch.kernels import gmm as gm
     prompts = prompts_for(cfg)
     L = cfg.num_layers
-    gm.gmm.launches = fa.flash_attention.launches = 0
+    gm.gmm.launches = 0
     gm.gmm.route_launches = dict.fromkeys(gm.ROUTES, 0)
+    reset_flash(fa)
     _, res = drive_engine(torch, cfg, params, prompts)
     launches = (gm.gmm.launches, fa.flash_attention.launches)
     want = (3 * L * (len(prompts) + res["ticks"]), L * len(prompts))
@@ -1038,6 +1164,7 @@ def moe_serve(torch, card: str, cfg, params):
         raise AssertionError(f"serving launched (gmm, flash) = {launches}, "
                              f"want {want}; gmm by route "
                              f"{gm.gmm.route_launches}, want all wgmma")
+    flash_on_route(fa, want[1], f"{cfg.name} serving")
     by_route = dict(gm.gmm.route_launches)
     prof = profile_ticks(torch, cfg, params, prompts)
     res = dict(card=card, arch=cfg.name, layers=L, **res,
@@ -1069,6 +1196,7 @@ def moe_f32(torch, card: str, cfg):
     on the kernel path); the first in a sequence must be a near-tie (gap
     < 1e-4), and the sequences it touches are held out of the 1e-4 check
     (their error is printed).  At least one sequence must remain."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gm
     from repro_torch.models import decode_step, forward, prefill
     from repro_torch.models import moe as moe_mod
@@ -1092,10 +1220,12 @@ def moe_f32(torch, card: str, cfg):
     try:
         n0 = gm.gmm.launches
         f0 = gm.gmm.route_launches["mma_sync"]
+        reset_flash(fa)
         lo_k = forward(c32, p32, batch)[0]
         if gm.gmm.launches != n0 + 3 * MOE_F32_LAYERS or \
                 gm.gmm.route_launches["mma_sync"] != f0 + 3 * MOE_F32_LAYERS:
             raise AssertionError("the f32 forward did not run the f32 gmm")
+        flash_on_route(fa, MOE_F32_LAYERS, "f32 forward", route="f32")
         lo_x = forward(c32.replace(scan_impl="xla", attention_impl="xla"),
                        p32, batch)[0]
     finally:
@@ -1161,6 +1291,31 @@ def moe_f32(torch, card: str, cfg):
     return res
 
 
+def tiny_serve(torch):
+    """``python -m repro_torch.launch.serve --tiny`` on the card, for the
+    dense default and the two families that fit one card only tiny: the
+    tiny configs' head dim 16 takes the flash kernel's mma.sync route."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as serve_mod
+    res = {}
+    for arch in (ARCH, "dbrx-132b", JAMBA_ARCH):
+        reset_flash(fa)
+        argv = sys.argv
+        sys.argv = ["serve", "--tiny", "--arch", arch]
+        try:
+            serve_mod.main()
+        finally:
+            sys.argv = argv
+        n = fa.flash_attention.launches
+        if n == 0:
+            raise AssertionError(f"tiny {arch} served without the flash "
+                                 "kernel")
+        res[arch] = flash_on_route(fa, n, f"tiny {arch} serving",
+                                   route="mma_sync")
+    print("tiny serve " + json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1207,6 +1362,7 @@ def main() -> int:
     # 3. kernels vs plain versions
     phase("kernel")
     cases = kernel_cases(torch, fa)
+    grad_guard(torch, fa, rw, mb, gm)
     wcases = wkv_cases(torch, rw)
     clock_hz = max_sm_clock_hz()
     print(f"max SM clock {clock_hz / 1e6:.0f} MHz", flush=True)
@@ -1215,11 +1371,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 4. qwen3-8b serving through the flash kernel
+    # 4. qwen3-8b serving through the flash kernel, under grad mode (its
+    # params require no grad, so the wrappers' grad guard lets it pass);
+    # then the launcher's tiny configs
     phase("serve qwen3-8b")
     res = serve(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
+    phase("serve --tiny")
+    with torch.inference_mode():
+        tiny_serve(torch)
 
     # 5.-6. rwkv6-3b: forward and loss through the WKV6 kernel, then serving
     from repro_torch.configs import get_config
@@ -1283,6 +1444,8 @@ def main() -> int:
     # 13. kernel line: each kernel at its main path's largest shape
     phase("done")
     big = next(c for c in cases if c["Sq"] == 2048)
+    if big["route"] != "wgmma" or big["prior_ms"] is None:
+        raise AssertionError(f"the prefill's flash shape took {big['route']}")
     wbig = next(c for c in wcases if c["B"] == RWKV_BATCH
                 and c["S"] == RWKV_SEQ)
     mbig = mcases[0]    # (4, 2048, 16384, 16), the jamba forward's shape
@@ -1296,13 +1459,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:23",
         "tpu_kernel": "kernels/flash_attention.py:_flash_kernel",
         "launches": res["flash_launches"],
+        "route_launches": res["flash_launches_by_route"],
         "max_abs_err": max(c["max_err"] for c in cases),
         "max_err": max(c["max_err"] for c in cases),
         "ms": big["kernel_ms"],
+        "prior_ms": big["prior_ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"],
         "library_ms": big["library_ms"],
+        "library_causal_ms": big["library_causal_ms"],
     }, {
         "name": "rwkv6_scan",
         "route": "cuda",

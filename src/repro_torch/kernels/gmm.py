@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import check_no_grad
 
 MAX_M_TILES = 65535   # mma_sync's grid y dimension (m-tiles of 64 or 128)
 MAX_WGMMA_GROUPS = 2048   # csrc/gmm.cu kMaxGroups: the scan held in smem
@@ -113,7 +114,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def _launch(lhs: torch.Tensor, rhs: torch.Tensor,
             group_sizes: Optional[torch.Tensor], equal_rows: int,
             kernel: str) -> torch.Tensor:
-    """One launch of the ``kernel`` route; raises if it fails."""
+    """One launch of the ``kernel`` route; raises if it fails, or if
+    autograd would need a backward through it."""
+    check_no_grad("gmm", "scan_impl", lhs, rhs)
     M, K = lhs.shape
     G, _, N = rhs.shape
     out = torch.empty(M, N, dtype=lhs.dtype, device=lhs.device)

@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import check_no_grad
 
 STATE_DIMS = (8, 16)
 
@@ -85,6 +86,7 @@ def mamba_scan(A: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"mamba_scan runs on cpu or cuda, not {x.device}")
     _check(A, dt, b, c, x)
+    check_no_grad("mamba_scan", "scan_impl", A, dt, b, c, x)
     B, S, di = x.shape
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):

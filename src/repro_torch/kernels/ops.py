@@ -2,9 +2,9 @@
 
 Counterpart of ``repro/kernels/ops.py``: the model keeps activations as
 [B,S,H,D]; the kernels take [B,H,S,D].  The transposes are the same as
-the reference's.  The flash kernel reads dense rows, so its inputs are made
-contiguous; the WKV6 kernel reads and writes through strides, so its
-inputs go to it as transposed views, with no copies.  The selective scan
+the reference's.  The flash and WKV6 kernels read and write through
+strides, so their inputs go to them as transposed views and their outputs
+come back in the model's layout, with no copies.  The selective scan
 takes the model's layout as it is.  The grouped matmul takes rows sorted
 by group (``gmm_sorted``, the reference's wrapper of that name) or the MoE
 capacity buffer [E, C+1, d] (``gmm_equal``).
@@ -22,13 +22,14 @@ from repro_torch.kernels import rwkv6_scan as _rw
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
                     block_q: int = 128, block_k: int = 128) -> torch.Tensor:
-    """q: [B,Sq,Hq,D]; k,v: [B,Skv,Hkv,D] -> [B,Sq,Hq,D] (model layout)."""
-    qt = q.transpose(1, 2).contiguous()
-    kt = k.transpose(1, 2).contiguous()
-    vt = v.transpose(1, 2).contiguous()
-    o = _fa.flash_attention(qt, kt, vt, causal=causal, q_offset=q_offset,
-                            block_q=block_q, block_k=block_k)
-    return o.transpose(1, 2)
+    """q: [B,Sq,Hq,D]; k,v: [B,Skv,Hkv,D] -> [B,Sq,Hq,D] (model layout).
+
+    On the card o comes back in q's memory layout, so for a contiguous q
+    it is contiguous and the caller's reshape to [B,Sq,Hq*D] is free."""
+    tr = lambda t: t.transpose(1, 2)
+    return tr(_fa.flash_attention(tr(q), tr(k), tr(v), causal=causal,
+                                  q_offset=q_offset, block_q=block_q,
+                                  block_k=block_k))
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

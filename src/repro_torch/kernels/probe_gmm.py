@@ -19,13 +19,12 @@ Needs a CUDA card and nvcc; prints one JSON line a shape.
 """
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import _probe
 from repro_torch.kernels import gmm as gm
 
 SHAPES = ((641, 2048, 768), (641, 768, 2048), (161, 2048, 768),
@@ -41,47 +40,13 @@ VARIANTS = {
 }
 
 
-def _variant_lib(name: str, edits) -> ctypes.CDLL:
-    src = (_build.CSRC / "gmm.cu").read_text()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"variant {name!r}: {old!r} not found once")
-        src = src.replace(old, new)
-    out_dir = _build.BUILD_DIR / "probe"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    stem = name.replace(" ", "_")
-    (out_dir / f"{stem}.cu").write_text(src)
-    lib = out_dir / f"lib{stem}.so"
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                           str(lib), str(out_dir / f"{stem}.cu")],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
-    return ctypes.CDLL(str(lib))
-
-
-def _ms(fn, iters: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("probe_gmm needs a CUDA card")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    print(_probe.card(), flush=True)
     libs = {"as built": _build.load("gmm")}
-    libs.update((n, _variant_lib(n, e)) for n, e in VARIANTS.items())
+    libs.update((n, _probe.variant_lib("gmm", n, e))
+                for n, e in VARIANTS.items())
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     for R, K, N in SHAPES:
@@ -93,12 +58,12 @@ def main() -> None:
         for name, lib in libs.items():
             # the wrapper finds the library it launches under "gmm"
             _build._LOADED["gmm"] = (lib, 0.0, "")
-            row[f"wgmma {name} ms"] = _ms(
+            row[f"wgmma {name} ms"] = _probe.device_ms(
                 lambda: gm._launch(lhs, w, None, R, "wgmma"))
         _build._LOADED["gmm"] = (libs["as built"], 0.0, "")
-        row["mma_sync ms"] = _ms(lambda: gm._launch(lhs, w, None, R,
-                                                    "mma_sync"))
-        row["bmm ms"] = _ms(lambda: torch.bmm(x, w))
+        row["mma_sync ms"] = _probe.device_ms(
+            lambda: gm._launch(lhs, w, None, R, "mma_sync"))
+        row["bmm ms"] = _probe.device_ms(lambda: torch.bmm(x, w))
         print(json.dumps(row), flush=True)
 
 

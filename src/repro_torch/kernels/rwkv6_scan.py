@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import check_no_grad
 
 CHUNK = 64
 HEAD_DIMS = (32, 64)
@@ -108,6 +109,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan runs on cpu or cuda, not {r.device}")
     _check(r, k, v, w, u)
+    check_no_grad("rwkv6_scan", "scan_impl", r, k, v, w, u)
     B, H, S, D = r.shape
     y = torch.empty_like(r)
     strides = lambda t: (ctypes.c_longlong * 3)(*t.stride()[:3])

@@ -13,11 +13,11 @@ batching and prints tokens/s with the device.
 
 ``--arch qwen3-moe-30b-a3b`` serves the MoE family at full width on one
 80 GB card (61.1 GB of bf16 weights).  ``--arch jamba-1.5-large-398b``
-(with its experts) and ``--arch dbrx-132b`` run with ``--tiny --device
-cpu`` (the tiny configs' head_dim 16 is not one the flash kernel takes);
-at full width one jamba superblock with its four MoE layers is 90.5 GB
-and dbrx 263 GB, more than one card holds, and they wait for the
-multi-device slice (ROADMAP port slice (g)).
+(with its experts) and ``--arch dbrx-132b`` run only with ``--tiny``, on
+the card or with ``--device cpu``: at full width one jamba superblock
+with its four MoE layers is 90.5 GB and dbrx 263 GB, more than one card
+holds, and they wait for the multi-device slice (ROADMAP port slice
+(g)).
 """
 from __future__ import annotations
 

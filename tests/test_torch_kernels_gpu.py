@@ -1,5 +1,6 @@
 """The CUDA kernels (flash attention, WKV6 scan, selective scan, grouped
-matmul) against their plain versions, on the card.
+matmul) against their plain versions, on the card, and each wrapper's
+grad guard.
 
 Skips without a CUDA card.  On the card (no JAX needed):
 
@@ -47,6 +48,92 @@ def test_cuda_kernel_matches_plain(B, Hq, Hkv, Sq, Skv, D, causal, q_offset,
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,q_offset", [
+    (1, 32, 8, 777, 777, 128, True, 0),      # ragged Sq, qwen3-8b heads
+    (2, 8, 2, 300, 500, 128, False, 0),      # Sq != Skv, not causal
+    (2, 4, 2, 128, 384, 64, True, 256),      # q_offset = 256
+    (1, 4, 2, 77, 333, 64, True, 256),       # ragged both, q_offset
+    (4, 32, 4, 256, 256, 128, True, 0),      # qwen3-moe heads
+    (2, 4, 2, 300, 300, 16, True, 0),        # tiny head dims: mma.sync
+    (1, 4, 4, 200, 333, 32, False, 0),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_model_layout_takes_its_route(B, Hq, Hkv, Sq, Skv, D, causal,
+                                            q_offset, dtype):
+    """ops.flash_attention on [B,S,H,D] tensors: the kernel reads the
+    transposed views through their strides, writes o in the model layout
+    (contiguous [B,Sq,Hq,D]), and the launch takes ``tfa.route``'s kernel;
+    against the plain version at 2e-2 (bf16) or 2e-5 (f32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(Sq + Skv + D)
+    q, k, v = (torch.randn(B, S, H, D, generator=gen).to(dt).cuda()
+               for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
+    kernel = tfa.route(dt, D)
+    launches = tfa.flash_attention.launches
+    by_route = tfa.flash_attention.route_launches[kernel]
+    got = tops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == launches + 1
+    assert tfa.flash_attention.route_launches[kernel] == by_route + 1
+    assert got.shape == (B, Sq, Hq, D) and got.is_contiguous()
+    tr = lambda t: t.transpose(1, 2)
+    want = tr(tfa.flash_attention_plain(tr(q), tr(k), tr(v), causal=causal,
+                                        q_offset=q_offset))
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+def _guarded_calls():
+    """One small CUDA call of each kernel wrapper: (name, fn, args)."""
+    dev = "cuda"
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    return [
+        ("flash_attention", tfa.flash_attention,
+         [torch.randn(1, 2, 64, 64, **bf) for _ in range(3)]),
+        ("rwkv6_scan", trw.rwkv6_scan,
+         [torch.randn(1, 2, 64, 64, device=dev) for _ in range(3)]
+         + [torch.rand(1, 2, 64, 64, device=dev),
+            torch.randn(2, 64, device=dev)]),
+        ("mamba_scan", tmb.mamba_scan,
+         [-torch.rand(32, 16, device=dev), torch.rand(1, 64, 32, device=dev),
+          torch.randn(1, 64, 16, device=dev),
+          torch.randn(1, 64, 16, device=dev),
+          torch.randn(1, 64, 32, device=dev)]),
+        ("gmm", tgmm.gmm,
+         [torch.randn(64, 64, **bf), torch.randn(2, 64, 64, **bf),
+          torch.tensor([32, 32], dtype=torch.int32, device=dev)]),
+        ("gmm_equal", tgmm.gmm_equal,
+         [torch.randn(2, 32, 64, **bf), torch.randn(2, 64, 64, **bf)]),
+    ]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", range(5), ids=[
+    "flash_attention", "rwkv6_scan", "mamba_scan", "gmm", "gmm_equal"])
+def test_cuda_wrapper_refuses_grad_and_runs_without(which):
+    """A CUDA kernel has no backward: under grad mode an input that
+    requires grad is refused before any launch; under torch.no_grad() the
+    same call launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    name, fn, args = _guarded_calls()[which]
+    counter = tgmm.gmm if name.startswith("gmm") else fn
+    args[0].requires_grad_(True)
+    launches = counter.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*args)
+    assert counter.launches == launches
+    with torch.no_grad():
+        out = fn(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == launches + 1
+    assert bool(torch.isfinite(out).all())
 
 
 @pytest.mark.gpu
