@@ -16,8 +16,10 @@ Phases, each of which raises on failure (exit code != 0):
                launch's route, and on their wgmma routes time the mma.sync
                kernel beside it (``prior_ms``); flash's inputs are model-
                layout views, and SDPA is timed masked and, where it is the
-               same function, ``is_causal``; then each kernel wrapper must
-               raise on an input that requires grad under grad mode;
+               same function, ``is_causal``; WKV6's two launches
+               (zeroing the flags, the kernel) are also timed apart; then
+               each kernel wrapper must raise on an input that requires
+               grad under grad mode;
   4. serve   - full-width qwen3-8b (bf16, seeded random weights) behind
                ServeEngine: 8 requests, 4 slots; checks the flash kernel's
                launch count (all on the wgmma route), finite logits, and
@@ -387,17 +389,15 @@ def wkv_bound(B, H, S, D):
     f32 operations of its cheapest form, the token-by-token recurrence
     S_t = diag(w_t) S_{t-1} + k_t^T v_t (3 D^2: w*S, k*v, add) and
     y_t = r_t S_{t-1} + (r_t . (u * k_t)) v_t (2 D^2 + 5 D).  It needs no
-    exponential.  ``chunked_sfu_ops`` counts the exp/log operations of the
-    kernel's chunked log-space form: a cost of that design, not part of
-    the bound."""
+    exponential.  ``chunked_sfu_ops`` counts the log2/exp2 operations of
+    the kernel's chunked form, a cost of that design and not part of the
+    bound: per chunk of 64 tokens (a ragged one padded to 64) and (b, h),
+    log2 w (64 D), the tiles rq and kl (2 x 64 D), and the gains g_ij,
+    2^{L_{b_i}}, 2^{L_{C-1} - L_{b_{j+1}}} and 2^{L_{C-1}} (15 D); the
+    diagonal blocks take the decay as products of w, with none."""
     flops = B * H * S * (5 * D * D + 5 * D)
     nbytes = 4 * (5 * B * H * S * D + H * D)
-    sfu = 0
-    for c0 in range(0, S, 64):
-        n = min(64, S - c0)
-        sfu += 2 * n * D + n * (n - 1) // 2 * D   # log w, e^{L_prev}, intra
-        if c0 + 64 < S:
-            sfu += n * D + D                      # e^{L_C - L}, e^{L_C}
+    sfu = -(-S // 64) * (3 * 64 + 15) * D
     t_ops = flops / PEAK_FLOPS["float32"]
     t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -405,15 +405,42 @@ def wkv_bound(B, H, S, D):
             dict(bytes=nbytes, flops=flops, chunked_sfu_ops=sfu * B * H))
 
 
+def wkv_pass_ms(torch, rw, args, iters: int = 20):
+    """Mean device ms of each launch of the WKV6 wrapper (zeroing the
+    state-pass flags, then the kernel), from CUDA events that
+    ``rw._launch`` records around each."""
+    marks = []
+
+    def mark(name):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((name, event))
+
+    rw._launch(*args)
+    for _ in range(iters):
+        rw._launch(*args, mark=mark)
+    torch.cuda.synchronize()
+    out = {}
+    for (name, a), (_, b) in zip(marks, marks[1:]):
+        if name is not None:
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b) / iters
+    return out
+
+
 def wkv_cases(torch, rw):
     """WKV6 kernel vs plain version on the card; one dict per case.  The
     inputs are laid out [B,S,H,D] and go in as [B,H,S,D] views, as the
-    model's ``ops.rwkv6_scan`` hands them over."""
+    model's ``ops.rwkv6_scan`` hands them over.  ``decay`` is None (random
+    decays), a number (one decay everywhere) or "mixed" (each channel its
+    own decay, log-spaced from 1e-6 to 1)."""
     cases = [dict(B=1, H=40, S=2048, D=64, decay=None),
              dict(B=4, H=40, S=2048, D=64, decay=None),
              dict(B=1, H=40, S=777, D=64, decay=None),
              dict(B=2, H=3, S=128, D=64, decay=None),
-             dict(B=1, H=1, S=256, D=64, decay=1e-6)]
+             dict(B=1, H=1, S=256, D=64, decay=1e-6),
+             dict(B=4, H=40, S=2048, D=32, decay=None),
+             dict(B=1, H=40, S=777, D=64, decay="mixed"),
+             dict(B=2, H=40, S=64, D=64, decay=None)]   # one chunk
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     results = []
@@ -424,8 +451,13 @@ def wkv_cases(torch, rw):
             return torch.randn(*sh, generator=gen, device="cuda")
 
         r, k, v = rnd(*shape), rnd(*shape), rnd(*shape)
-        w = (torch.exp(-torch.exp(rnd(*shape))) if c["decay"] is None
-             else torch.full(shape, c["decay"], device="cuda"))
+        if c["decay"] is None:
+            w = torch.exp(-torch.exp(rnd(*shape)))
+        elif c["decay"] == "mixed":
+            w = torch.logspace(-6, 0, c["D"], device="cuda").expand(
+                *shape).contiguous()
+        else:
+            w = torch.full(shape, c["decay"], device="cuda")
         r, k, v, w = (t.transpose(1, 2) for t in (r, k, v, w))
         u = rnd(c["H"], c["D"])
         out = rw.rwkv6_scan(r, k, v, w, u)
@@ -447,12 +479,14 @@ def wkv_cases(torch, rw):
                                  f"error {err} > {tol}")
         kernel_ms = cuda_ms(torch, lambda: rw.rwkv6_scan(r, k, v, w, u),
                             iters=20)
+        pass_ms = wkv_pass_ms(torch, rw, (r, k, v, w, u))
         plain_ms = cuda_ms(torch, lambda: rw.rwkv6_scan_plain(r, k, v, w, u),
                            iters=3, warmup=1)
         bound_ms, bound_by, work = wkv_bound(c["B"], c["H"], c["S"], c["D"])
         res = dict(c, max_err=max_err, checked_err=err, tol=tol,
-                   kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
-                   bound_ms=bound_ms, bound_by=bound_by, **work)
+                   kernel_ms=kernel_ms, pass_ms=pass_ms, plain_ms=plain_ms,
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   **work)
         results.append(res)
         print("kernel case rwkv6_scan " + json.dumps(res), flush=True)
     return results
@@ -1447,7 +1481,7 @@ def main() -> int:
     if big["route"] != "wgmma" or big["prior_ms"] is None:
         raise AssertionError(f"the prefill's flash shape took {big['route']}")
     wbig = next(c for c in wcases if c["B"] == RWKV_BATCH
-                and c["S"] == RWKV_SEQ)
+                and c["S"] == RWKV_SEQ and c["D"] == 64)
     mbig = mcases[0]    # (4, 2048, 16384, 16), the jamba forward's shape
     gbig = gcases[0]    # bf16, 128 x 641 rows, 2048 -> 768: the forward's
     if gbig["route"] != "wgmma" or gbig["prior_ms"] is None:

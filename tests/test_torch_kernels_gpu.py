@@ -144,6 +144,9 @@ def test_cuda_wrapper_refuses_grad_and_runs_without(which):
     (2, 4, 100, 32, None),        # ragged, two chunks
     (1, 2, 1, 64, None),          # one token
     (1, 1, 256, 64, 1e-6),        # strong decay
+    (4, 40, 2048, 32, None),      # the forward's shape at D = 32
+    (1, 40, 777, 64, "mixed"),    # per-channel decays from 1e-6 to 1
+    (2, 40, 64, 64, None),        # one chunk: no state to carry
 ])
 def test_rwkv6_scan_kernel_matches_plain(B, H, S, D, decay):
     if not torch.cuda.is_available():
@@ -152,6 +155,8 @@ def test_rwkv6_scan_kernel_matches_plain(B, H, S, D, decay):
     r, k, v = (torch.randn(B, H, S, D, generator=gen) for _ in range(3))
     if decay is None:
         w = torch.exp(-torch.exp(torch.randn(B, H, S, D, generator=gen)))
+    elif decay == "mixed":
+        w = torch.logspace(-6, 0, D).expand(B, H, S, D).contiguous()
     else:
         w = torch.full((B, H, S, D), decay)
     u = torch.randn(H, D, generator=gen)
@@ -190,6 +195,31 @@ def test_rwkv6_scan_kernel_model_layout(B, S, H, D):
     tr = lambda t: t.transpose(1, 2).contiguous()
     want = trw.rwkv6_scan_plain(tr(r), tr(k), tr(v), tr(w), u).transpose(1, 2)
     got, want = got.cpu().numpy(), want.cpu().numpy()
+    scale = float(np.abs(want).max()) + 1.0
+    np.testing.assert_allclose(got / scale, want / scale, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_rwkv6_scan_kernel_unaligned_rows():
+    """Rows that start off a 16-byte boundary (views into [.., D + 1]
+    tensors) take the kernel's scalar loads and stores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, H, S, D = 2, 3, 200, 64
+    gen = torch.Generator().manual_seed(7)
+    wide = lambda x: x.cuda()[..., 1:]
+    r, k, v = (wide(torch.randn(B, H, S, D + 1, generator=gen))
+               for _ in range(3))
+    w = wide(torch.exp(-torch.exp(torch.randn(B, H, S, D + 1,
+                                              generator=gen))))
+    u = torch.randn(H, D, generator=gen).cuda()
+    assert r.stride(2) % 4 != 0
+    launches = trw.rwkv6_scan.launches
+    got = trw.rwkv6_scan(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert trw.rwkv6_scan.launches == launches + 1
+    want = trw.rwkv6_scan_plain(r, k, v, w, u).cpu().numpy()
+    got = got.cpu().numpy()
     scale = float(np.abs(want).max()) + 1.0
     np.testing.assert_allclose(got / scale, want / scale, rtol=2e-4, atol=2e-4)
 
