@@ -17,9 +17,11 @@ Phases, each of which raises on failure (exit code != 0):
                kernel beside it (``prior_ms``); flash's inputs are model-
                layout views, and SDPA is timed masked and, where it is the
                same function, ``is_causal``; WKV6's two launches
-               (zeroing the flags, the kernel) are also timed apart; then
-               each kernel wrapper must raise on an input that requires
-               grad under grad mode;
+               (zeroing the flags, the kernel) are also timed apart; the
+               selective scan's final state is checked beside y, each case
+               names its states a thread and B = 1 is timed beside B = 4;
+               then each kernel wrapper must raise on an input that
+               requires grad under grad mode;
   4. serve   - full-width qwen3-8b (bf16, seeded random weights) behind
                ServeEngine: 8 requests, 4 slots; checks the flash kernel's
                launch count (all on the wgmma route), finite logits, and
@@ -46,12 +48,14 @@ Phases, each of which raises on failure (exit code != 0):
                logits and loss, the bf16 distance to the plain scan path
                printed;
   8. serve   - the same model behind ServeEngine with the qwen3-8b traffic:
-               2 flash launches a prefill and no scan launch (prefill takes
-               the state-returning scan), every admitted slot's cache equal
-               bit for bit to its one-request prefill cache;
+               14 scan launches (the kernel returns the final state) and 2
+               flash launches a prefill, every admitted slot's cache equal
+               bit for bit to its one-request prefill cache; a profiled
+               tick with a 2048-token prefill;
   9. f32     - the same model at 8 layers in f32 (16 do not fit): the
                kernel path against the plain scan path within 1e-3 of the
-               logits' scale, and prefill + decode against forward;
+               logits' scale, and prefill (through the kernel's final
+               state) + decode against forward;
  10. forward - full-width, full-depth qwen3-moe-30b-a3b (48 layers, 128
                experts, top-8, bf16, seed 0, attention_impl and scan_impl
                "pallas") over 4 x 2048 seeded tokens through forward and
@@ -76,6 +80,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -336,9 +341,36 @@ def to_f32(tree):
     return tree.float()
 
 
+# the port's kernels by their __global__ functions' names
+PORT_KERNELS = {
+    "flash_attention": ("flash_fwd_bf16", "flash_fwd_f32",
+                        "flash_wgmma_kernel"),
+    "rwkv6_scan": ("wkv6_chunk",),
+    "mamba_scan": ("mamba_scan_kernel",),
+    "gmm": ("gmm_bf16_kernel", "gmm_f32_kernel", "gmm_wgmma_kernel"),
+}
+# a demangled kernel name's own symbol, after "void " and its namespaces:
+# "void (anonymous namespace)::mamba_scan_kernel<16>(float const*, ...)"
+_SYMBOL = re.compile(r"(?:void )?(?:(?:\(anonymous namespace\)|\w+)::)*(\w+)")
+
+
+def port_kernel(key: str):
+    """The port kernel that a profiled kernel is, by its exact symbol, or
+    None; "other" for any other kernel named like flash or gmm (a
+    library's), which the port's counts must not take in."""
+    sym = _SYMBOL.match(key).group(1)
+    for name, syms in PORT_KERNELS.items():
+        if sym in syms:
+            return name
+    return "other" if "flash" in key or "gmm" in key else None
+
+
+
 def profile_call(torch, fn, label: str):
     """One call of ``fn`` under torch.profiler: device busy share, top
-    kernels."""
+    kernels, and the device ms and launches of the port's own kernels
+    (``port_kernels``, by the source's kernel name; ``other`` gathers
+    any other kernel named like flash or gmm)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -357,7 +389,14 @@ def profile_call(torch, fn, label: str):
            "device_busy_share": busy_ms / wall_ms if kernels else None,
            "kernel_launches": sum(e.count for e in kernels),
            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                              for e in top}}
+                              for e in top},
+           "port_kernels": {}}
+    for e in kernels:
+        name = port_kernel(e.key)
+        if name is not None:
+            ms, n = res["port_kernels"].get(name, (0.0, 0))
+            res["port_kernels"][name] = (ms + e.self_device_time_total / 1e3,
+                                         n + e.count)
     print(f"profile {label} " + json.dumps(res), flush=True)
     return res
 
@@ -793,7 +832,13 @@ def mamba_bound(B, S, di, N, clock_hz):
 
 def mamba_cases(torch, mb, clock_hz):
     """Selective-scan kernel vs plain version on the card; one dict per
-    case.  Scale-normalised error within 1e-4, as tests/test_kernels.py."""
+    case.  Scale-normalised error within 1e-4, as tests/test_kernels.py,
+    for y and for the final state hT (the checked call asks for it; the
+    timed call does not, as in forward; ``state_ms`` times the call with
+    it, as in prefill).  Where dt is fixed (underflow, weak decay) the
+    kernel is also held within 1e-4 of the plain version in float64, the
+    function without f32's rounding, and ``f64_err`` prints the kernel's
+    and the f32 plain version's errors against it."""
     import torch.nn.functional as F
     cases = [dict(B=4, S=2048, di=16384, N=16, dt=None),   # jamba forward
              dict(B=1, S=2048, di=16384, N=16, dt=None),
@@ -802,7 +847,10 @@ def mamba_cases(torch, mb, clock_hz):
              dict(B=2, S=128, di=64, N=16, dt=None),
              dict(B=1, S=256, di=128, N=16, dt=None),
              dict(B=1, S=2048, di=16384, N=16, dt=30.0),   # exp underflows
-             dict(B=1, S=2048, di=16384, N=16, dt=1e-3)]   # weak decay
+             dict(B=1, S=2048, di=16384, N=16, dt=1e-3),   # weak decay
+             # weak decay over serving's longest prompt (MAX_LEN)
+             dict(B=1, S=MAX_LEN, di=16384, N=16, dt=1e-3),
+             dict(B=1, S=MAX_LEN, di=16384, N=16, dt=1e-2)]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     results = []
@@ -817,23 +865,46 @@ def mamba_cases(torch, mb, clock_hz):
               else torch.full((B, S, di), c["dt"], device="cuda"))
         b, cc, x = rnd(B, S, N), rnd(B, S, N), rnd(B, S, di)
         args = (A, dt, b, cc, x)
-        out = mb.mamba_scan(*args)
-        want = mb.mamba_scan_plain(*args)
+        out, hT = mb.mamba_scan(*args, return_state=True)
+        want, want_h = mb.mamba_scan_plain(*args, return_state=True)
         torch.cuda.synchronize()
-        if not bool(torch.isfinite(out).all()):
-            raise AssertionError(f"non-finite kernel output: {c}")
-        max_err = float((out - want).abs().max())
-        err = scaled_err(out, want)
-        if err > 1e-4:
-            raise AssertionError(f"kernel disagrees with plain version: {c}, "
-                                 f"scaled error {err} > 1e-4")
+        errs = {}
+        for name, got, ref in (("y", out, want), ("hT", hT, want_h)):
+            if tuple(got.shape) != tuple(ref.shape) or \
+                    not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"bad kernel {name} {tuple(got.shape)}: "
+                                     f"{c}")
+            errs[name] = (float((got - ref).abs().max()),
+                          scaled_err(got, ref))
+            if errs[name][1] > 1e-4:
+                raise AssertionError(f"kernel {name} disagrees with plain "
+                                     f"version: {c}, scaled error "
+                                     f"{errs[name][1]} > 1e-4")
+        f64_err = None
+        if c["dt"] is not None:
+            exact = mb.mamba_scan_plain(*args, return_state=True,
+                                        dtype=torch.float64)
+            f64_err = {name: [scaled_err(got.double(), ref),
+                              scaled_err(plain.double(), ref)]
+                       for name, got, plain, ref in
+                       (("y", out, want, exact[0]),
+                        ("hT", hT, want_h, exact[1]))}
+            del exact
+            if max(e[0] for e in f64_err.values()) > 1e-4:
+                raise AssertionError(f"kernel disagrees with the float64 "
+                                     f"plain version: {c}, {f64_err}")
         kernel_ms = cuda_ms(torch, lambda: mb.mamba_scan(*args), iters=20)
+        state_ms = cuda_ms(torch, lambda: mb.mamba_scan(
+            *args, return_state=True), iters=20)
         plain_ms = cuda_ms(torch, lambda: mb.mamba_scan_plain(*args),
                            iters=2, warmup=1)
         bound_ms, bound_by, work = mamba_bound(B, S, di, N, clock_hz)
-        res = dict(c, max_err=max_err, checked_err=err, tol=1e-4,
-                   kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
-                   bound_ms=bound_ms, bound_by=bound_by, **work)
+        res = dict(c, spt=mb.STATES_PER_THREAD, max_err=errs["y"][0],
+                   checked_err=errs["y"][1], hT_max_err=errs["hT"][0],
+                   hT_checked_err=errs["hT"][1], f64_err=f64_err, tol=1e-4,
+                   kernel_ms=kernel_ms, state_ms=state_ms, plain_ms=plain_ms,
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   **work)
         results.append(res)
         print("kernel case mamba_scan " + json.dumps(res), flush=True)
     return results
@@ -908,24 +979,26 @@ def jamba_forward(torch, card: str, cfg, params):
 
 
 def jamba_serve(torch, card: str, cfg, params):
-    """Jamba behind ServeEngine: the flash kernel runs in each prefill, the
-    scan kernel not at all (prefill needs the final state)."""
+    """Jamba behind ServeEngine: each prefill runs the scan kernel once a
+    Mamba layer (it returns the final state) and the flash kernel once an
+    attention layer; decode runs neither."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as mb
     prompts = prompts_for(cfg)
     nb = cfg.num_layers // cfg.hybrid_period
+    want = ((cfg.num_layers - nb) * len(prompts), nb * len(prompts))
     mb.mamba_scan.launches = 0
     reset_flash(fa)
     _, res = drive_engine(torch, cfg, params, prompts)
     launches = (mb.mamba_scan.launches, fa.flash_attention.launches)
-    if launches != (0, nb * len(prompts)):
+    if launches != want:
         raise AssertionError(f"serving launched (scan, flash) = {launches}, "
-                             f"want {(0, nb * len(prompts))}")
+                             f"want {want}")
     flash_on_route(fa, nb * len(prompts), f"{cfg.name} serving")
-    # a 2048-token prefill makes ~200k launches, too many to trace whole
-    prof = profile_ticks(torch, cfg, params, prompts, prefill_len=512)
+    prof = profile_ticks(torch, cfg, params, prompts)
     res = dict(card=card, arch=cfg.name, layers=cfg.num_layers, **res,
-               scan_launches=0, flash_launches=launches[1], profile=prof)
+               scan_launches=launches[0], flash_launches=launches[1],
+               profile=prof)
     print("serve " + json.dumps(res), flush=True)
     return res
 
@@ -933,7 +1006,8 @@ def jamba_serve(torch, card: str, cfg, params):
 def jamba_f32(torch, card: str, cfg):
     """At JAMBA_F32_LAYERS layers in f32: the kernel path against the plain
     scan path (within 1e-3 of the logits' scale), and prefill(S-1) +
-    decode(1) against forward(S) on a 777-token prompt."""
+    decode(1) against forward(S) on a 777-token prompt, the prefill's
+    states from the kernel."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as mb
     from repro_torch.models import decode_step, forward, prefill
@@ -958,8 +1032,11 @@ def jamba_f32(torch, card: str, cfg):
     toks = batch["tokens"][:1, :777]
     pos = batch["positions"][:1, :777]
     full = forward(c32, p32, {"tokens": toks, "positions": pos})[0][:, -1]
+    n0 = mb.mamba_scan.launches
     _, cache = prefill(c32, p32, {"tokens": toks[:, :-1],
                                   "positions": pos[:, :-1]}, max_len=MAX_LEN)
+    if mb.mamba_scan.launches != n0 + JAMBA_F32_LAYERS - 1:
+        raise AssertionError("the f32 prefill did not run the f32 kernel")
     dec = decode_step(c32, p32, toks[:, -1:], cache)[0][:, 0]
     decode_err = scaled_err(dec, full)
     if decode_err > 1e-3:
@@ -1445,7 +1522,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase(f"serve {JAMBA_ARCH}")
-        jamba_serve(torch, card, cfg, params)
+        jserve = jamba_serve(torch, card, cfg, params)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -1483,6 +1560,7 @@ def main() -> int:
     wbig = next(c for c in wcases if c["B"] == RWKV_BATCH
                 and c["S"] == RWKV_SEQ and c["D"] == 64)
     mbig = mcases[0]    # (4, 2048, 16384, 16), the jamba forward's shape
+    mone = mcases[1]    # (1, 2048, 16384, 16), a 2048-token jamba prefill
     gbig = gcases[0]    # bf16, 128 x 641 rows, 2048 -> 768: the forward's
     if gbig["route"] != "wgmma" or gbig["prior_ms"] is None:
         raise AssertionError(f"the forward's gmm shape took {gbig['route']}")
@@ -1524,9 +1602,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/mamba_scan.py:24",
         "tpu_kernel": "kernels/mamba_scan.py:_mamba_kernel",
         "launches": jfwd["scan_launches"],
+        "serve_launches": jserve["scan_launches"],
         "max_abs_err": max(c["max_err"] for c in mcases),
         "max_err": max(c["max_err"] for c in mcases),
         "ms": mbig["kernel_ms"],
+        "spt": mbig["spt"],
+        "ms_b1": mone["state_ms"],
+        "bound_ms_b1": mone["bound_ms"],
         "plain_ms": mbig["plain_ms"],
         "bound_ms": mbig["bound_ms"],
         "bound_by": mbig["bound_by"],

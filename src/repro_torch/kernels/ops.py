@@ -40,9 +40,12 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def mamba_scan(A: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
-               c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A: [di,N]; dt,x: [B,S,di]; b,c: [B,S,N] -> y [B,S,di] float32."""
-    return _mb.mamba_scan(*(t.contiguous() for t in (A, dt, b, c, x)))
+               c: torch.Tensor, x: torch.Tensor, *,
+               return_state: bool = False):
+    """A: [di,N]; dt,x: [B,S,di]; b,c: [B,S,N] -> y [B,S,di] float32, or
+    with ``return_state`` (y, hT [B,di,N] float32)."""
+    return _mb.mamba_scan(*(t.contiguous() for t in (A, dt, b, c, x)),
+                          return_state=return_state)
 
 
 def gmm_sorted(lhs: torch.Tensor, rhs: torch.Tensor,

@@ -44,10 +44,12 @@ def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def mamba_ref(A: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
-              c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+              c: torch.Tensor, x: torch.Tensor, *,
+              return_state: bool = False):
     """Sequential selective scan.
 
-    A: [di,N]; dt,x: [B,S,di]; b,c: [B,S,N] -> y [B,S,di] (float32).
+    A: [di,N]; dt,x: [B,S,di]; b,c: [B,S,N] -> y [B,S,di] (float32), or
+    with ``return_state`` (y, the final state [B,di,N]).
     """
     B, S, di = x.shape
     A, dt, b, c, x = (t.float() for t in (A, dt, b, c, x))
@@ -58,7 +60,8 @@ def mamba_ref(A: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         dBx = (dt[:, t] * x[:, t])[..., None] * b[:, t, None, :]
         h = dA * h + dBx
         ys.append(torch.einsum("bdn,bn->bd", h, c[:, t]))
-    return torch.stack(ys, dim=1)
+    y = torch.stack(ys, dim=1)
+    return (y, h) if return_state else y
 
 
 def gmm_ref(lhs: torch.Tensor, rhs: torch.Tensor,

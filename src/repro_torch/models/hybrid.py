@@ -120,8 +120,8 @@ def superblock_prefill(cfg: ModelConfig, p: Params, h: torch.Tensor,
                                   torch.Tensor]:
     """Prefill: also returns this superblock's decode state, the attention
     K/V [B,S,kv_dim] and the Mamba ``conv``/``ssm`` [n_mamba, B, ...], and
-    its aux loss.  The Mamba layers take the state-returning scan, never
-    the kernel."""
+    its aux loss.  The Mamba layers take the state-returning scan (the
+    kernel under ``scan_impl="pallas"``)."""
     cache: Dict[str, torch.Tensor] = {}
     states = []
     aux = torch.zeros((), dtype=torch.float32, device=h.device)

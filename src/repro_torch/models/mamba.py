@@ -3,8 +3,11 @@
 Counterpart of ``repro/models/mamba.py``.  ``cfg.scan_impl`` picks the
 full-sequence scan:
   * ``pallas`` - the hand-written CUDA kernel through ``kernels/ops.py``
-                 (its plain version on a CPU tensor), only when no final
-                 state is asked for, as in the reference (``mamba.py:106``);
+                 (its plain version on a CPU tensor), with or without the
+                 final state: the kernel also writes the state after the
+                 last token, so prefill (``return_state``) takes it too.
+                 The reference takes its token loop whenever the state is
+                 asked for (``mamba.py:106``); the function is the same;
   * otherwise  - the token-by-token scan ``_scan_chunk``, which also
                  returns the final state.
 The reference runs ``_scan_chunk`` over 256-token chunks only to bound
@@ -113,8 +116,9 @@ def mamba_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     A = -torch.exp(p["A_log"])                         # [di, N]
     xf = xc.float()
 
-    if cfg.scan_impl == "pallas" and not return_state:
-        y = kops.mamba_scan(A, dt, b, c, xf)
+    if cfg.scan_impl == "pallas":
+        out = kops.mamba_scan(A, dt, b, c, xf, return_state=return_state)
+        y, h = out if return_state else (out, None)
     else:
         h0 = torch.zeros(B, di, N, dtype=torch.float32, device=x.device)
         y, h = _scan_chunk(A, dt, b, c, xf, h0)

@@ -184,10 +184,12 @@ def prefill(cfg: ModelConfig, p: Params, batch: Batch, max_len: int,
             ) -> Tuple[torch.Tensor, Params]:
     """Run the full prompt; returns (last-position logits, filled cache).
 
-    RWKV6 prefill and the hybrid's Mamba layers take the paths that
-    return the final state (``return_state``), never the scan kernels, as
-    in the reference; those states have no sequence axis, so ``max_len``
-    bounds only the attention K/V.
+    RWKV6 prefill and the hybrid's Mamba layers ask for the final state
+    (``return_state``).  RWKV6 takes its state-returning plain path, as in
+    the reference, never the WKV6 kernel; the Mamba layers take the
+    selective-scan kernel under ``scan_impl="pallas"`` (it returns the
+    state too), where the reference takes its token loop.  Those states
+    have no sequence axis, so ``max_len`` bounds only the attention K/V.
     """
     _require_ported(cfg)
     positions = batch["positions"]

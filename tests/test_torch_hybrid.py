@@ -81,24 +81,43 @@ def test_forward_and_loss_match_jax(scan_impl):
         np.testing.assert_allclose(f32(tm[name]), f32(jm[name]), **TOL)
 
 
-def test_pallas_forward_runs_the_scan_once_per_mamba_layer_and_prefill_never(
+def test_pallas_forward_runs_the_scan_once_per_mamba_layer_and_prefill_with_the_state(
         monkeypatch):
-    """scan_impl="pallas" reaches ops.mamba_scan in forward only (7 Mamba
-    layers a superblock); prefill needs the final state, which the kernel
-    does not return."""
+    """scan_impl="pallas" reaches ops.mamba_scan once per Mamba layer (7 a
+    superblock) in forward, without the state, and as often in prefill,
+    with it: prefill never takes the token loop ``_scan_chunk`` (the
+    kernel returns the final state).  The pallas prefill's logits and
+    "ssm"/"conv" entries are the xla prefill's, which takes the loop."""
+    from repro_torch.models import mamba as tmamba
     _, tcfg = _configs(dtype="float32", scan_impl="pallas")
     tp = params(*_configs(dtype="float32"))[1]
     _, tb = batches(tcfg, 1, 70)
-    calls = []
-    real = tops.mamba_scan
-    monkeypatch.setattr(tops, "mamba_scan",
-                        lambda *a: calls.append(a[-1].shape) or real(*a))
+    calls, loops = [], []
+    real, real_loop = tops.mamba_scan, tmamba._scan_chunk
+
+    def scan(*a, **kw):
+        calls.append((tuple(a[-1].shape), kw.get("return_state", False)))
+        return real(*a, **kw)
+
+    def loop(*a):
+        loops.append(tuple(a[-2].shape))
+        return real_loop(*a)
+
+    monkeypatch.setattr(tops, "mamba_scan", scan)
+    monkeypatch.setattr(tmamba, "_scan_chunk", loop)
     lo_k, _ = forward(tcfg, tp, tb)
-    assert calls == [(1, 70, 128)] * 7
+    assert calls == [((1, 70, 128), False)] * 7 and loops == []
     lo_x, _ = forward(tcfg.replace(scan_impl="xla"), tp, tb)
     np.testing.assert_allclose(f32(lo_k), f32(lo_x), **TOL)
-    prefill(tcfg, tp, tb, max_len=70)
-    assert len(calls) == 7
+    del calls[:], loops[:]
+    pl_k, pc_k = prefill(tcfg, tp, tb, max_len=70)
+    assert calls == [((1, 70, 128), True)] * 7 and loops == []
+    pl_x, pc_x = prefill(tcfg.replace(scan_impl="xla"), tp, tb, max_len=70)
+    assert len(calls) == 7 and loops == [(1, 70, 128)] * 7
+    np.testing.assert_allclose(f32(pl_k), f32(pl_x), **TOL)
+    for name in ("ssm", "conv"):
+        assert pc_k[name].shape == pc_x[name].shape, name
+        np.testing.assert_allclose(f32(pc_k[name]), f32(pc_x[name]), **TOL)
 
 
 @pytest.mark.parametrize("S", [2, 12, 100])

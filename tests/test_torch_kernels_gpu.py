@@ -234,6 +234,7 @@ def test_rwkv6_scan_kernel_unaligned_rows():
     (1, 1, 128, 16, None),        # one token
     (1, 256, 256, 16, 30.0),      # strong decay: exp underflows to 0
     (1, 2048, 256, 16, 1e-3),     # weak decay
+    (1, 4096, 16384, 16, 1e-3),   # weak decay over serving's longest prompt
 ])
 def test_mamba_scan_kernel_matches_plain(B, S, di, N, dt):
     if not torch.cuda.is_available():
@@ -249,15 +250,47 @@ def test_mamba_scan_kernel_matches_plain(B, S, di, N, dt):
     x = torch.randn(B, S, di, generator=gen)
     xs = [t.cuda() for t in (A, dtv, b, c, x)]
     launches = tmb.mamba_scan.launches
-    got = tmb.mamba_scan(*xs)
+    got, hT = tmb.mamba_scan(*xs, return_state=True)
     torch.cuda.synchronize()
     assert tmb.mamba_scan.launches == launches + 1
-    want = tmb.mamba_scan_plain(*xs).cpu().numpy()
-    got = got.cpu().numpy()
-    assert np.isfinite(got).all()
-    scale = float(np.abs(want).max()) + 1.0   # as tests/test_kernels.py, 1e-4
-    np.testing.assert_allclose(got / scale, want / scale, rtol=1e-4,
-                               atol=1e-4)
+    want, want_h = (t.cpu().numpy() for t in
+                    tmb.mamba_scan_plain(*xs, return_state=True))
+    # as tests/test_kernels.py: 1e-4 of the output's scale, for y and hT
+    for g, w in ((got.cpu().numpy(), want), (hT.cpu().numpy(), want_h)):
+        assert g.shape == w.shape and np.isfinite(g).all()
+        scale = float(np.abs(w).max()) + 1.0
+        np.testing.assert_allclose(g / scale, w / scale, rtol=1e-4,
+                                   atol=1e-4)
+    # without the state: the same y, one launch more
+    alone = tmb.mamba_scan(*xs)
+    assert tmb.mamba_scan.launches == launches + 2
+    np.testing.assert_array_equal(alone.cpu().numpy(), got.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [8, 16])
+def test_mamba_scan_each_state_dim_matches_plain(N):
+    """Each N instance of the kernel through ``_launch``, on a ragged S
+    and di (4-byte copies) and on a di of 16-byte rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for B, S, di in ((2, 77, 130), (1, 300, 512)):
+        gen = torch.Generator().manual_seed(N + di)
+        A = -torch.exp(torch.randn(di, N, generator=gen))
+        dtv = torch.nn.functional.softplus(torch.randn(B, S, di,
+                                                       generator=gen))
+        b, c = (torch.randn(B, S, N, generator=gen) for _ in range(2))
+        x = torch.randn(B, S, di, generator=gen)
+        xs = [t.cuda() for t in (A, dtv, b, c, x)]
+        y = torch.empty_like(xs[-1])
+        hT = torch.empty(B, di, N, device="cuda")
+        tmb._launch(*xs, y, hT)
+        want = tmb.mamba_scan_plain(*xs, return_state=True)
+        for g, w in zip((y, hT), want):
+            scale = float(w.abs().max()) + 1.0
+            np.testing.assert_allclose((g / scale).cpu().numpy(),
+                                       (w / scale).cpu().numpy(),
+                                       rtol=1e-4, atol=1e-4)
 
 
 def _gmm_scaled_err(got, want_f32):

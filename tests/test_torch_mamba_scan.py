@@ -14,6 +14,7 @@ import numpy as np
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.mamba_scan import mamba_scan as jmamba_scan
+from repro.models.mamba import _scan_chunk as jscan_chunk
 from repro_torch.kernels import mamba_scan as tmb
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -110,10 +111,13 @@ def test_ops_matches_jax_ops():
     ("A", ValueError, "want A"),
     ("b", ValueError, "want b = c"),
     ("layout", ValueError, "contiguous"),
+    ("batch", ValueError, "1 <= B <= 65535"),
+    ("empty", ValueError, "want S, di >= 1"),
 ])
 def test_check_rejects_what_the_kernel_does_not_take(case, exc, match):
     N = 4 if case == "d_state" else 8
-    A, dt, b, c, x = _torch(_inputs(1, 16, 32, N))
+    B, S = {"batch": (65536, 1), "empty": (1, 0)}.get(case, (1, 16))
+    A, dt, b, c, x = _torch(_inputs(B, S, 32, N))
     if case == "dtype":
         dt = dt.to(torch.bfloat16)
     elif case == "x":
@@ -126,3 +130,50 @@ def test_check_rejects_what_the_kernel_does_not_take(case, exc, match):
         x = x.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(exc, match=match):
         tmb._check(A, dt, b, c, x)
+
+
+@pytest.mark.parametrize("B,S,di,N,dt", [
+    (1, 64, 32, 8, None),          # the JAX sweep's shapes
+    (2, 128, 64, 16, None),
+    (1, 256, 128, 16, None),
+    (2, 1, 32, 8, None),           # ragged S
+    (2, 3, 40, 16, None),
+    (2, 77, 24, 8, None),
+    (2, 130, 130, 16, None),
+    (1, 256, 32, 16, 30.0),        # exp underflows: the state forgets
+    (1, 256, 32, 8, 1e-3),         # weak decay: it sums every step
+    (1, 4096, 16, 16, 1e-3),       # ... over serving's longest prompt
+    (1, 4096, 16, 8, 1e-2),
+])
+def test_final_state_matches_reference_token_loop(B, S, di, N, dt):
+    """``return_state`` gives the reference's ``_scan_chunk`` (y, hT) from
+    h0 = 0, the path the reference's prefill takes; y stays what the call
+    without the state gives, and so does the oracle's state."""
+    x = _inputs(B, S, di, N, seed=S + N, dt=dt)
+    A, dtv, b, c, xs = _jax(x)
+    jy, jh = jscan_chunk(A, dtv, b, c, xs, jnp.zeros((B, di, N), jnp.float32))
+    y, hT = tmb.mamba_scan(*_torch(x), return_state=True)  # CPU: plain
+    assert hT.shape == (B, di, N) and hT.dtype == torch.float32
+    np.testing.assert_allclose(hT.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_array_equal(y.numpy(), tmb.mamba_scan(*_torch(x)).numpy())
+    oy, oh = tref.mamba_ref(*_torch(x), return_state=True)
+    np.testing.assert_allclose(oh.numpy(), np.asarray(jh), **TOL)
+    oy2, oh2 = tops.mamba_scan(*_torch(x), return_state=True)
+    np.testing.assert_array_equal(oh2.numpy(), hT.numpy())
+
+
+@pytest.mark.parametrize("S,N,dt", [
+    (130, 16, None),
+    (1024, 8, 1e-3),               # weak decay
+])
+def test_plain_in_float64_matches_reference_token_loop(S, N, dt):
+    """``dtype=torch.float64`` computes the same function in float64 (the
+    card's check holds the kernel against it)."""
+    x = _inputs(2, S, 24, N, seed=S, dt=dt)
+    jy, jh = jscan_chunk(*_jax(x), jnp.zeros((2, 24, N), jnp.float32))
+    y, hT = tmb.mamba_scan_plain(*_torch(x), return_state=True,
+                                 dtype=torch.float64)
+    assert y.dtype == hT.dtype == torch.float64
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(hT.numpy(), np.asarray(jh), **TOL)
