@@ -70,6 +70,22 @@ Phases, each of which raises on failure (exit code != 0):
                flash) against the plain path within 1e-4 of the logits'
                scale, every routing difference between the two printed by
                layer and token, and prefill + decode against forward;
+ 13. train   - full-width, full-depth qwen3-4b (36 layers, 4.4 B f32
+               params, bf16 activations, seed 0) through make_train_step:
+               4 steps of 2 x 2048 tokens in 2 microbatches, remat "full",
+               int8 moments, attention_impl "xla" (the kernels have no
+               backward); the loss finite and falling; ms a step (CUDA
+               events over steps 2-4), tokens/s, the model-FLOPs share and
+               the peak memory printed, and a profiled fifth step; then the
+               eval step under attention_impl "pallas": 36 flash launches,
+               all wgmma, its ce beside the plain path's;
+ 14. train   - the same model at 2 layers in f32 activations: one train
+               step (fp32 moments, int8 gradient compression, 2
+               microbatches) on the card and on the host's CPU, held
+               within 1e-4 of each leaf's scale (the moments and the error
+               feedback allowing one int8 code where the grads straddle a
+               tie), and the eval step's ce on the f32 flash kernel
+               against the plain path's at 1e-4;
 (every serving run checks each admission's splice of every cache entry)
 then prints a JSON line of kernel numbers and, last, the JSON result line.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -79,6 +95,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -102,6 +119,10 @@ JAMBA_F32_LAYERS = 8       # 1 superblock in f32: ~36 GB
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_BATCH = 4              # 4 x 2048 scoring tokens (61.1 GB of weights)
 MOE_F32_LAYERS = 4         # 3.1 B params, 12.5 GB in f32
+TRAIN_ARCH = "qwen3-4b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 2, 2048, 2
+TRAIN_STEPS = 4
+TRAIN_CHECK_LAYERS = 2     # card vs CPU: ~1 B params in f32
 GMM_SWEEP = ([128, 128, 128, 128], [100, 0, 300, 112], [0, 0, 512, 0],
              [1, 2, 3, 506])   # tests/test_kernels.py::test_gmm_sweep
 SFU_PER_CLOCK_PER_SM = 16  # exponentials (special-function units), sm_90
@@ -366,9 +387,11 @@ def port_kernel(key: str):
 
 
 
-def profile_call(torch, fn, label: str):
-    """One call of ``fn`` under torch.profiler: device busy share, top
-    kernels, and the device ms and launches of the port's own kernels
+def profile_call(torch, fn, label: str, top: int = 6):
+    """One call of ``fn`` under torch.profiler: device busy share, the
+    ``top`` kernels (ms and launches; names cut to 60 characters, those
+    that then agree summed), and the device ms and launches of the port's
+    own kernels
     (``port_kernels``, by the source's kernel name; ``other`` gathers
     any other kernel named like flash or gmm)."""
     from torch.autograd import DeviceType
@@ -383,13 +406,17 @@ def profile_call(torch, fn, label: str):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    by_name = {}        # kernels whose names agree in 60 characters, summed
+    for e in kernels:
+        ms, n = by_name.get(e.key[:60], (0.0, 0))
+        by_name[e.key[:60]] = (ms + e.self_device_time_total / 1e3,
+                               n + e.count)
     res = {"wall_ms": wall_ms,
            "device_busy_ms": busy_ms if kernels else "not measured",
            "device_busy_share": busy_ms / wall_ms if kernels else None,
            "kernel_launches": sum(e.count for e in kernels),
-           "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                              for e in top},
+           "top_kernels_ms": dict(sorted(by_name.items(),
+                                         key=lambda kv: -kv[1][0])[:top]),
            "port_kernels": {}}
     for e in kernels:
         name = port_kernel(e.key)
@@ -1402,6 +1429,207 @@ def moe_f32(torch, card: str, cfg):
     return res
 
 
+def train_run(cfg, *, batch: int, seq: int, **optim_kw):
+    """A RunConfig for ``cfg`` (a train shape of ``batch`` x ``seq``)."""
+    from repro_torch.config import TRAIN, OptimConfig, RunConfig, ShapeConfig
+    return RunConfig(model=cfg, shape=ShapeConfig("smoke", TRAIN, seq, batch),
+                     optim=OptimConfig(**optim_kw),
+                     microbatches=TRAIN_MICRO, seed=SEED)
+
+
+def train(torch, card: str):
+    """Full-width, full-depth qwen3-4b: TRAIN_STEPS train steps on one seeded
+    batch (f32 params, bf16 activations, remat "full", int8 moments, the
+    plain attention path), then the eval step through the flash kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.optim import adamw_update, clip_by_global_norm
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train import make_eval_step, make_opt_state, \
+        make_train_step
+
+    cfg = get_config(TRAIN_ARCH).replace(param_dtype="float32",
+                                         dtype="bfloat16", remat="full",
+                                         layers_per_step=1)
+    B, S, L = TRAIN_BATCH, TRAIN_SEQ, cfg.num_layers
+    run = train_run(cfg, batch=B, seq=S, state_dtype="int8", warmup_steps=1)
+    params = seeded_params(torch, cfg)
+    n = n_params(params)
+    opt = make_opt_state(run, params)
+    batch = scoring_batch(torch, cfg, B, S)
+    step = make_train_step(run)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, metrics = step(params, opt, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        print(f"train step: loss {losses[-1]:.6f}, grad_norm "
+              f"{float(metrics['grad_norm']):.4f}, lr "
+              f"{float(metrics['lr']):.3e}, {step_ms[-1]:.1f} ms", flush=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses {losses}: not finite, or step "
+                             f"{TRAIN_STEPS}'s not below step 1's")
+    ms = sum(step_ms[1:]) / len(step_ms[1:])
+    tokens = B * S
+    flops = 6 * n * tokens + B * 12 * L * cfg.num_heads * cfg.head_dim \
+        * S * S / 2
+    prof = profile_call(torch, lambda: step(params, opt, batch),
+                        f"{cfg.name} train_step", top=10)
+
+    # the eval step under no_grad: the flash kernel once a layer, against
+    # the same eval step on the plain attention path
+    eval_k = make_eval_step(train_run(cfg.replace(attention_impl="pallas"),
+                                      batch=B, seq=S))
+    eval_x = make_eval_step(run)
+    reset_flash(fa)
+    ev = eval_k(params, batch)
+    torch.cuda.synchronize()
+    flash_on_route(fa, L, f"{cfg.name} eval step")
+    ev_x = eval_x(params, batch)
+    eval_ms = cuda_ms(torch, lambda: eval_k(params, batch), iters=3,
+                      warmup=1)
+    eval_plain_ms = cuda_ms(torch, lambda: eval_x(params, batch), iters=3,
+                            warmup=1)
+    # the optimizer alone: clip, then AdamW with int8 moments, on zero
+    # grads (the same work as on the step's grads)
+    grads = tree_map(torch.zeros_like, params)
+    lr = torch.tensor(3e-4, device="cuda")
+    optimizer_ms = cuda_ms(torch, lambda: adamw_update(
+        clip_by_global_norm(grads, run.optim.grad_clip)[0], opt, params, lr,
+        run.optim), iters=3, warmup=1)
+    del grads
+    res = dict(card=card, arch=cfg.name, layers=L, params=n, batch=B, seq=S,
+               microbatches=TRAIN_MICRO, remat=cfg.remat,
+               state_dtype=run.optim.state_dtype, losses=losses,
+               step_ms=step_ms, ms_per_step=ms,
+               tokens_per_s=tokens / ms * 1e3,
+               model_flops_per_step=flops,
+               model_flops_share=flops / (ms * 1e-3) / PEAK_FLOPS["bfloat16"],
+               max_memory_allocated_gb=peak_gb,
+               eval_ce=float(ev["ce"]), eval_ce_plain_path=float(ev_x["ce"]),
+               eval_ce_kernel_vs_plain=abs(float(ev["ce"]) -
+                                           float(ev_x["ce"])),
+               eval_flash_launches=L, eval_ms=eval_ms,
+               eval_plain_ms=eval_plain_ms, optimizer_ms=optimizer_ms,
+               profile=prof)
+    print("train " + json.dumps(res), flush=True)
+    return res
+
+
+def _leaf_err(got, want, slack=None) -> float:
+    """max |got - want| over max |want| (``slack``, per element, is taken
+    off |got - want| first)."""
+    d = (got - want).abs()
+    if slack is not None:
+        d = (d - slack).clamp(min=0)
+    return float(d.max()) / max(float(want.abs().max()), 1e-30)
+
+
+def _code_step(x, block: int):
+    """Per element of ``x``: the step of its int8 code in blocks of
+    ``block`` along the last dim."""
+    from repro_torch.optim import q8_encode
+    s = q8_encode(x, block)[1]
+    return s.repeat_interleave(block, dim=-1)[..., :x.shape[-1]]
+
+
+def train_card_vs_cpu(torch, card: str):
+    """qwen3-4b at TRAIN_CHECK_LAYERS layers, full width, f32 activations:
+    one train step (fp32 moments, int8 gradient compression, 2
+    microbatches) on the card and, explicitly, on the host's CPU; then the
+    eval step under "pallas" (the f32 flash kernel) against "xla"."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.optim.compress import BLOCK
+    from repro_torch.train import make_eval_step, make_opt_state, \
+        make_train_step
+
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=TRAIN_CHECK_LAYERS,
+                                         dtype="float32",
+                                         param_dtype="float32")
+    B, S = 2, 128
+    run = train_run(cfg, batch=B, seq=S, grad_compress="int8")
+    params = seeded_params(torch, cfg)
+    batch = scoring_batch(torch, cfg, B, S)
+    on_cpu = (tree_map(lambda t: t.to("cpu"), params),
+              {k: v.to("cpu") for k, v in batch.items()})
+    out, secs = {}, {}
+    for device, (p, b) in (("cuda", (params, batch)), ("cpu", on_cpu)):
+        t = time.perf_counter()
+        state = make_opt_state(run, p)
+        p, state, metrics = make_train_step(run)(p, state, b)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs[device] = time.perf_counter() - t
+        out[device] = (metrics, p, state)
+    (cm, cp, cs), (hm, hp, hs) = out["cuda"], out["cpu"]
+    metric_err = {k: abs(float(cm[k]) - float(hm[k])) /
+                  max(abs(float(hm[k])), 1e-30) for k in hm}
+    param_err = max(_leaf_err(a.cpu(), b) for a, b in
+                    zip(tree_leaves(cp), tree_leaves(hp)))
+    # The moments and the error feedback carry every grad.  Where the two
+    # devices' grads straddle a rounding tie of the int8 compression, a
+    # code lands one step (s) away: there m may differ by (1 - b1) s, v by
+    # (1 - b2)(2 |g| s + s^2) and the error by s.  Such elements are
+    # counted, and must stay few.
+    b1, b2 = run.optim.b1, run.optim.b2
+    state_err, flips, n_el = {"m": 0.0, "v": 0.0, "ef_error": 0.0}, 0, 0
+    for m_c, v_c, e_c, m_h, v_h, e_h in zip(
+            *(tree_leaves(s[k]) for s in (cs, hs)
+              for k in ("m", "v", "ef_error"))):
+        g = m_h / (1 - b1)
+        s = _code_step(g, BLOCK) * 1.001
+        for name, got, want, slack in (
+                ("m", m_c, m_h, (1 - b1) * s),
+                ("v", v_c, v_h, (1 - b2) * (2 * g.abs() * s + s * s)),
+                ("ef_error", e_c, e_h, s)):
+            got = got.cpu()
+            state_err[name] = max(state_err[name],
+                                  _leaf_err(got, want, slack))
+            if name == "m":
+                flips += int(((got - want).abs() >
+                              1e-4 * want.abs().max()).sum())
+                n_el += want.numel()
+    del out, on_cpu, cs, hs, cp, hp
+    gc.collect()
+    reset_flash(fa)
+    ev_k = make_eval_step(train_run(cfg.replace(attention_impl="pallas"),
+                                    batch=B, seq=S))(params, batch)
+    torch.cuda.synchronize()
+    flash_on_route(fa, cfg.num_layers, "f32 eval step", route="f32")
+    ev_x = make_eval_step(run)(params, batch)
+    eval_err = abs(float(ev_k["ce"]) - float(ev_x["ce"])) / \
+        abs(float(ev_x["ce"]))
+    res = dict(card=card, arch=cfg.name, layers=cfg.num_layers,
+               params=n_params(params), batch=B, seq=S,
+               microbatches=TRAIN_MICRO, grad_compress="int8",
+               card_s=secs["cuda"], cpu_s=secs["cpu"],
+               metrics_card={k: float(v) for k, v in cm.items()},
+               metrics_rel_err=metric_err, param_max_scaled_err=param_err,
+               state_max_scaled_err_beyond_one_code=state_err,
+               grad_code_flips=flips, elements=n_el,
+               eval_ce_kernel_vs_plain_rel_err=eval_err)
+    print("train card vs cpu " + json.dumps(res), flush=True)
+    bad = [k for k, e in metric_err.items() if e > 1e-4]
+    if bad or param_err > 1e-4 or max(state_err.values()) > 1e-4 or \
+            flips > 1e-3 * n_el or eval_err > 1e-4:
+        raise AssertionError(f"card vs CPU train step: metrics {bad}, "
+                             f"params {param_err}, state {state_err}, "
+                             f"{flips} of {n_el} grad codes apart, eval "
+                             f"{eval_err}; limit 1e-4 (codes: 1e-3 of them)")
+    return res
+
+
 def tiny_serve(torch):
     """``python -m repro_torch.launch.serve --tiny`` on the card, for the
     dense default and the two families that fit one card only tiny: the
@@ -1552,7 +1780,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 13. kernel line: each kernel at its main path's largest shape
+    # 13.-14. qwen3-4b training at full width and depth on the plain
+    # paths, its eval step through the flash kernel; then one train step at
+    # 2 layers on the card against the same step on the host's CPU
+    t_train = time.perf_counter()
+    phase(f"train {TRAIN_ARCH}")
+    tres = train(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"train {TRAIN_ARCH} card vs cpu")
+    train_card_vs_cpu(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train phase: {time.perf_counter() - t_train:.1f} s", flush=True)
+
+    # 15. kernel line: each kernel at its main path's largest shape
     phase("done")
     big = next(c for c in cases if c["Sq"] == 2048)
     if big["route"] != "wgmma" or big["prior_ms"] is None:
@@ -1572,6 +1814,7 @@ def main() -> int:
         "tpu_kernel": "kernels/flash_attention.py:_flash_kernel",
         "launches": res["flash_launches"],
         "route_launches": res["flash_launches_by_route"],
+        "train_eval_launches": tres["eval_flash_launches"],
         "max_abs_err": max(c["max_err"] for c in cases),
         "max_err": max(c["max_err"] for c in cases),
         "ms": big["kernel_ms"],
@@ -1630,7 +1873,7 @@ def main() -> int:
         "library_ms": gbig["library_ms"],
     }]}), flush=True)
 
-    # 14. result
+    # 16. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,7 @@
 from repro_torch.config.base import (  # noqa: F401
     DENSE, MOE, HYBRID, SSM, ENCDEC, VLM, FAMILIES,
-    MambaConfig, RwkvConfig, MoeConfig, ModelConfig,
+    TRAIN, PREFILL, DECODE, SHAPES,
+    MambaConfig, RwkvConfig, MoeConfig, ModelConfig, ShapeConfig,
+    MeshConfig, OptimConfig, ShardingConfig, RunConfig,
     reduce_config,
 )

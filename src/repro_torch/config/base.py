@@ -2,14 +2,14 @@
 
 The port keeps its own copy (it imports nothing of ``repro``) with the same
 fields and values, so a reference config and a port config compare field
-by field.  Shape cells and the mesh/run configs wait for the slices that
-use them.
+by field.  ``MeshConfig`` and ``ShardingConfig`` are plain fields of
+``RunConfig`` until the multi-device slice gives them a meaning.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Model families
@@ -217,6 +217,99 @@ class ModelConfig:
         else:  # pragma: no cover
             raise ValueError(self.family)
         return total + embed + unembed + frontend
+
+
+# ---------------------------------------------------------------------------
+# Shape cells
+# ---------------------------------------------------------------------------
+
+TRAIN = "train"
+PREFILL = "prefill"
+DECODE = "decode"
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str             # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == DECODE
+
+
+# The four assigned LM shape cells.
+SHAPES: Mapping[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", TRAIN, 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", PREFILL, 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", DECODE, 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", DECODE, 524_288, 1),
+}
+
+
+# ---------------------------------------------------------------------------
+# Mesh / run configs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Production mesh description (see launch/mesh.py)."""
+
+    data: int = 16
+    model: int = 16
+    pods: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model * self.pods
+
+    @property
+    def multi_pod(self) -> bool:
+        return self.pods > 1
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    # "fp32" | "int8" blockwise-quantized first/second moments
+    state_dtype: str = "fp32"
+    int8_block: int = 256
+    # cross-pod error-feedback gradient compression ("none" | "int8")
+    grad_compress: str = "none"
+
+
+@dataclass(frozen=True)
+class ShardingConfig:
+    """Logical->physical sharding policy knobs (parallel/sharding.py)."""
+
+    policy: str = "fsdp"       # "baseline" (DP x TP) | "fsdp" (cached/ZeRO)
+    shard_seq: bool = False    # SP: shard sequence/state on data axis (long ctx)
+    fsdp_axis: str = "data"
+    tp_axis: str = "model"
+    pod_axis: str = "pod"
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig = MeshConfig()
+    optim: OptimConfig = OptimConfig()
+    sharding: ShardingConfig = ShardingConfig()
+    microbatches: int = 1
+    seed: int = 0
+
+    def replace(self, **kw: Any) -> "RunConfig":
+        return dataclasses.replace(self, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -11,15 +11,27 @@ max_len, kv_dim]; RWKV6 ``tshift``/``cshift`` [L, B, d] and ``wkv``
 (f32); all with a per-slot ``index`` [B] (int32).  ``cache_batch_axes``
 says which axis of each entry is the batch.  ``MOE`` runs the ``DENSE``
 branches (its blocks hold ``moe`` in place of ``mlp``, and their aux
-losses reach ``loss_fn``).  Grads and remat wait for the training slice;
-the other families for their own slices (ROADMAP).
+losses reach ``loss_fn``).  The other families wait for their own slices
+(ROADMAP).
+
+Under grad mode ``forward`` and ``loss_fn`` differentiate through autograd
+on the plain paths (``attention_impl``/``scan_impl`` ``"xla"``; a CUDA
+kernel refuses grad, ``kernels/_grad.py``).  ``cfg.remat`` is the
+reference's ``_maybe_remat``: each group of ``cfg.layers_per_step`` blocks
+runs inside ``torch.utils.checkpoint``, saving nothing inside the group
+(``"full"``) or the matmul outputs (``"dots"``, the reference's
+``checkpoint_dots``).  Without grad mode the groups run as they are.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.config.base import DENSE, HYBRID, MOE, SSM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -97,22 +109,76 @@ def _rwkv_block(cfg: ModelConfig, lp: Params, h: torch.Tensor,
     return h, {"tshift": xn[:, -1, :], "cshift": xn2[:, -1, :], "wkv": st}
 
 
+# matmul reaches dispatch as one of these; "dots" saves their outputs
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_kwargs(cfg: ModelConfig) -> Dict[str, Any]:
+    if cfg.remat == "full":
+        return {}
+    if cfg.remat == "dots":
+        return {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)}
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
+BlockFn = Callable[[Params, torch.Tensor],
+                   Tuple[torch.Tensor, Optional[torch.Tensor]]]
+
+
+def _apply_group(apply_fn: BlockFn, group: List[Params], h: torch.Tensor,
+                 aux: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    for lp in group:
+        h, a = apply_fn(lp, h)
+        if a is not None:
+            aux = aux + a
+    return h, aux
+
+
+def _scan_blocks(cfg: ModelConfig, blocks: List[Params], h: torch.Tensor,
+                 apply_fn: BlockFn) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``apply_fn(block, h) -> (h, aux or None)`` over ``blocks`` in groups
+    of ``cfg.layers_per_step``, each group one remat region under grad
+    mode (the reference's ``_scan_blocks``): the stash between groups
+    shrinks by the group size, the recompute grows by it."""
+    g = max(cfg.layers_per_step, 1)
+    if len(blocks) % g:
+        raise ValueError(f"layers_per_step={g} does not divide the "
+                         f"{len(blocks)} blocks")
+    aux = torch.zeros((), device=h.device)
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    kw = _remat_kwargs(cfg) if remat else {}
+    for i in range(0, len(blocks), g):
+        run = functools.partial(_apply_group, apply_fn, blocks[i:i + g])
+        if remat:
+            h, aux = checkpoint(run, h, aux, use_reentrant=False, **kw)
+        else:
+            h, aux = run(h, aux)
+    return h, aux
+
+
 def forward(cfg: ModelConfig, p: Params, batch: Batch,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B,S,V], aux_loss)."""
     _require_ported(cfg)
     positions = batch["positions"]
     h = L.embed_tokens(cfg, p["embed"], batch["tokens"])
-    aux = torch.zeros((), device=h.device)
-    for lp in p["blocks"]:
-        if cfg.family == SSM:
-            h = _rwkv_block(cfg, lp, h)
-        elif cfg.family == HYBRID:
-            h, a = HY.superblock_apply(cfg, lp, h, positions)
-            aux = aux + a
-        else:
-            h, a = B.block_apply(cfg, lp, h, positions)
-            aux = aux + a
+    if cfg.family == SSM:
+        def apply_fn(lp, hh):
+            return _rwkv_block(cfg, lp, hh), None
+    elif cfg.family == HYBRID:
+        def apply_fn(lp, hh):
+            return HY.superblock_apply(cfg, lp, hh, positions)
+    else:
+        def apply_fn(lp, hh):
+            return B.block_apply(cfg, lp, hh, positions)
+    h, aux = _scan_blocks(cfg, p["blocks"], h, apply_fn)
     return _logits(cfg, p, h), aux
 
 

@@ -1,6 +1,7 @@
 """The CUDA kernels (flash attention, WKV6 scan, selective scan, grouped
 matmul) against their plain versions, on the card, and each wrapper's
-grad guard.
+grad guard; a tiny train step on the card against the CPU's, and the
+eval step through flash while the train step refuses it.
 
 Skips without a CUDA card.  On the card (no JAX needed):
 
@@ -364,3 +365,69 @@ def test_gmm_equal_matches_einsum(G, R, K, N, dtype):
     want = torch.einsum("grk,gkn->grn", x.float(), w.float())
     tol = 1e-5 if dtype == "float32" else 4e-3
     assert _gmm_scaled_err(got, want) <= tol
+
+
+def _tiny_run(**model_kw):
+    from repro_torch.config import OptimConfig, RunConfig, SHAPES
+    from repro_torch.configs import get_tiny_config
+    cfg = get_tiny_config("qwen3-4b").replace(**model_kw)
+    return RunConfig(model=cfg, shape=SHAPES["train_4k"], microbatches=2,
+                     optim=OptimConfig(warmup_steps=1))
+
+
+def _tiny_params_and_batch(run, device):
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import tree_map
+    cpu = init_params(run.model, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    tok = torch.from_numpy(rng.integers(0, run.model.vocab_size, (4, 33)))
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:],
+             "positions": torch.arange(32).expand(4, 32).contiguous()}
+    return (tree_map(lambda p: p.to(device), cpu),
+            {k: v.to(device) for k, v in batch.items()})
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu():
+    """One tiny train step (f32 activations, 2 microbatches) on the card and
+    on the CPU: metrics at 1e-5, params and moments within 1e-4 of each
+    leaf's scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import make_opt_state, make_train_step
+    run = _tiny_run(dtype="float32")
+    out = {}
+    for device in ("cpu", "cuda"):
+        params, batch = _tiny_params_and_batch(run, device)
+        state = make_opt_state(run, params)
+        params, state, metrics = make_train_step(run)(params, state, batch)
+        out[device] = (metrics, [t.cpu() for t in tree_leaves(
+            [params, state["m"], state["v"]])])
+    for k, want in out["cpu"][0].items():
+        np.testing.assert_allclose(float(out["cuda"][0][k]), float(want),
+                                   rtol=1e-5, atol=1e-7, err_msg=k)
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_eval_step_runs_flash_and_train_step_refuses_it():
+    """Under ``attention_impl="pallas"`` the eval step launches the flash
+    kernel once a layer; the train step raises through the grad guard."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import make_eval_step, make_opt_state, \
+        make_train_step
+    run = _tiny_run(attention_impl="pallas")
+    params, batch = _tiny_params_and_batch(run, "cuda")
+    launches = tfa.flash_attention.launches
+    metrics = make_eval_step(run)(params, batch)
+    assert tfa.flash_attention.launches == launches + run.model.num_layers
+    assert bool(torch.isfinite(metrics["ce"]))
+    state = make_opt_state(run, params)
+    with pytest.raises(RuntimeError, match="no backward"):
+        make_train_step(run)(params, state, batch)
+    assert all(not p.requires_grad for p in tree_leaves(params))
