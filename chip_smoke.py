@@ -31,7 +31,25 @@ Phases, each of which raises on failure (exit code != 0):
                one tick with a 2048-token prefill; then the launcher
                ``serve --tiny`` for qwen3-8b, dbrx-132b and jamba (head dim
                16: the flash kernel's mma.sync route);
-  5. forward - full-width, full-depth rwkv6-3b (bf16, seed 0,
+  4b. checkpoint - full-width, full-depth qwen3-4b (bf16, seed 0) through
+               the launcher's fabric path (``launch/serve.py``
+               ``restore_over_fabric``): seeded params on the card, saved
+               through ``CheckpointManager`` into the home store of a
+               two-site XUFS fabric in a temp dir, synced, restored onto
+               the card; every restored leaf equal bit for bit to its
+               original; the first 4 prompts of the qwen3-8b traffic
+               served from the restored and from the original params give
+               the same greedy tokens, the restored run's prefill on flash
+               (36 ``wgmma`` launches a request); then qwen3-4b at 2
+               layers (f32 params, int8 moments) after one train step:
+               saved, stepped again in place, restored, and the saved
+               values back bit for bit, its save, sync and restore under
+               cProfile (the top functions by host seconds); prints the
+               checkpoint bytes, host seconds and GB/s of save, sync and
+               restore, their modeled WAN seconds and the free disk before
+               the phase (the fabric keeps ~3 copies: client cache, WAL
+               shadow, home store);
+ 5. forward - full-width, full-depth rwkv6-3b (bf16, seed 0,
                scan_impl="pallas") over 4 x 2048 seeded tokens through
                forward and loss_fn: 32 WKV6 kernel launches each, finite
                logits and loss, the kernel path against the plain chunked
@@ -123,6 +141,7 @@ TRAIN_ARCH = "qwen3-4b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 2, 2048, 2
 TRAIN_STEPS = 4
 TRAIN_CHECK_LAYERS = 2     # card vs CPU: ~1 B params in f32
+CKPT_PROMPTS = 4           # the qwen3-8b traffic's first 4 prompts
 GMM_SWEEP = ([128, 128, 128, 128], [100, 0, 300, 112], [0, 0, 512, 0],
              [1, 2, 3, 506])   # tests/test_kernels.py::test_gmm_sweep
 SFU_PER_CLOCK_PER_SM = 16  # exponentials (special-function units), sm_90
@@ -734,6 +753,182 @@ def serve(torch, card: str):
                prefill_parity_f32_max_err=parity_err,
                prefill_bf16_max_err=bf16_err, profile=prof)
     print("serve " + json.dumps(res), flush=True)
+    return res
+
+
+def by_path(tree, path=()):
+    """{path: tensor} of a tree of dicts, lists and tensors."""
+    if isinstance(tree, dict):
+        return {p: t for k, v in tree.items() for p, t in
+                by_path(v, path + (k,)).items()}
+    if isinstance(tree, list):
+        return {p: t for i, v in enumerate(tree) for p, t in
+                by_path(v, path + (i,)).items()}
+    return {path: tree}
+
+
+def assert_trees_equal(torch, got, want, what: str) -> int:
+    """Every leaf of ``got`` equal to ``want``'s bit for bit, on the same
+    device and dtype; returns the leaf count."""
+    got, want = by_path(got), by_path(want)
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: leaves differ: "
+                             f"{sorted(set(got) ^ set(want))[:5]}")
+    for k, w in want.items():
+        g = got[k]
+        if g.device != w.device or g.dtype != w.dtype or \
+                not torch.equal(g, w):
+            raise AssertionError(f"{what}: leaf {k} differs ({g.dtype} on "
+                                 f"{g.device} vs {w.dtype} on {w.device})")
+    return len(want)
+
+
+def host_profile(fn, label: str, top: int = 8):
+    """``fn()`` under cProfile: prints the ``top`` functions by own host
+    seconds (with their call counts) and returns (``fn``'s result, that
+    table).  Where the fabric's host time goes; the profiler adds a cost
+    per Python call, so the phase's clean seconds come from unprofiled
+    calls."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    out = prof.runcall(fn)
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    table = {f"{os.path.basename(f)}:{line}:{name}": (tt, nc)
+             for (f, line, name), (_, nc, tt, _, _) in rows}
+    print(f"host profile {label} " + json.dumps(table), flush=True)
+    return out, table
+
+
+def fabric_rates(info) -> dict:
+    """GB/s of save, sync and restore from ``restore_over_fabric``'s
+    host seconds."""
+    return {f"{k}_gb_per_s": info["bytes"] / info[f"{k}_s"] / 1e9
+            for k in ("save", "sync", "restore")}
+
+
+def checkpoint(torch, card: str):
+    """qwen3-4b (full width and depth, bf16) published and restored over
+    the fabric by the launcher's path, then served from the restored
+    params; then a 2-layer train state saved, stepped over and restored.
+    Every fabric file lives in a temp dir, removed when the phase ends."""
+    import shutil
+    import tempfile
+    from repro_torch.bridge import state_to_reference
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import Fabric, FabricSpec, SiteSpec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import restore_over_fabric
+    from repro_torch.train import make_opt_state, make_train_step
+
+    root = tempfile.mkdtemp(prefix="xufs_smoke_")
+    disk = shutil.disk_usage(root)
+    print(f"checkpoint: temp dir {root}, {disk.free / 1e9:.1f} GB free of "
+          f"{disk.total / 1e9:.1f} GB", flush=True)
+    try:
+        cfg = get_config(TRAIN_ARCH).replace(param_dtype="bfloat16",
+                                             attention_impl="pallas")
+        params = seeded_params(torch, cfg)
+        restored, info = restore_over_fabric(cfg, params,
+                                             os.path.join(root, "serve"))
+        shutil.rmtree(os.path.join(root, "serve"))
+        n_leaves = assert_trees_equal(torch, restored, params,
+                                      "restored qwen3-4b")
+        prompts = prompts_for(cfg)[:CKPT_PROMPTS]
+        with torch.inference_mode():
+            eng0, _ = drive_engine(torch, cfg, params, prompts)
+            want = [eng0.requests[i].output for i in range(len(prompts))]
+            del eng0
+            reset_flash(fa)
+            eng1, served = drive_engine(torch, cfg, restored, prompts)
+            by_route = flash_on_route(
+                fa, cfg.num_layers * len(prompts),
+                f"{cfg.name} served from restored params "
+                f"({cfg.num_layers} a prefill, {len(prompts)} prefills)")
+            got = [eng1.requests[i].output for i in range(len(prompts))]
+            del eng1
+        if got != want:
+            raise AssertionError(f"greedy tokens from the restored params "
+                                 f"{got} differ from the originals' {want}")
+        del params, restored
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the train state: f32 params, int8 moments, after one step
+        tcfg = get_config(TRAIN_ARCH).replace(
+            num_layers=TRAIN_CHECK_LAYERS, param_dtype="float32",
+            dtype="bfloat16")
+        run = train_run(tcfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        state_dtype="int8", warmup_steps=1)
+        tparams = seeded_params(torch, tcfg)
+        opt = make_opt_state(run, tparams)
+        batch = scoring_batch(torch, tcfg, TRAIN_BATCH, TRAIN_SEQ)
+        step = make_train_step(run)
+        tparams, opt, _ = step(tparams, opt, batch)
+        state = {"params": tparams, "opt": opt}
+        saved = state_to_reference(tcfg, state)
+        snapshot = {k: v.clone() for k, v in by_path(saved).items()}
+        fabric = Fabric(FabricSpec(sites=(
+            SiteSpec("home", root=os.path.join(root, "train", "home")),
+            SiteSpec("site", root=os.path.join(root, "train", "site")))))
+        net = fabric.network
+        s = fabric.login("trainer")
+        mgr = CheckpointManager(s.client, f"home/ckpt/{tcfg.name}")
+        c0, t0 = net.clock, time.perf_counter()
+        _, prof_save = host_profile(lambda: mgr.save(1, saved),
+                                    "train-state save")
+        t1 = time.perf_counter()
+        _, prof_sync = host_profile(s.client.sync, "train-state sync")
+        t2, c1 = time.perf_counter(), net.clock
+        step(tparams, opt, batch)          # in place, lr > 0 at count 1
+        torch.cuda.synchronize()
+        now = by_path(saved)
+        moved = sum(not torch.equal(now[k], v) for k, v in snapshot.items())
+        del now
+        if not moved:
+            raise AssertionError("the second train step changed no leaf of "
+                                 "the saved tree: the check would be vacuous")
+        template = state_to_reference(tcfg, state)
+        t3 = time.perf_counter()
+        (back, manifest), prof_restore = host_profile(
+            lambda: mgr.restore(template), "train-state restore")
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        del template
+        if manifest["step"] != 1:
+            raise AssertionError(f"restored step {manifest['step']}, want 1")
+        back = by_path(back)
+        n_train = assert_trees_equal(torch, back, snapshot,
+                                     "restored train state")
+        if back[("opt", "count")].shape != ():
+            raise AssertionError("count came back with shape "
+                                 f"{tuple(back[('opt', 'count')].shape)}")
+        tbytes = sum(t.numel() * t.element_size() for t in snapshot.values())
+        train_info = dict(bytes=tbytes, save_s=t1 - t0, sync_s=t2 - t1,
+                          restore_s=t4 - t3, save_wan_s=c1 - c0,
+                          restore_wan_s=net.clock - c1, profiled=True,
+                          host_profile=dict(save=prof_save, sync=prof_sync,
+                                            restore=prof_restore))
+        del tparams, opt, state, saved, snapshot, back
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(card=card, arch=cfg.name, layers=cfg.num_layers,
+               disk_free_gb=disk.free / 1e9, disk_total_gb=disk.total / 1e9,
+               serve=dict(info, **fabric_rates(info), leaves=n_leaves,
+                          prompts=len(prompts), tokens_equal=True,
+                          flash_launches=by_route["wgmma"],
+                          flash_launches_by_route=by_route,
+                          prefill_ms=served["prefill_ms"],
+                          tokens_per_s=served["tokens_per_s"]),
+               train_state=dict(train_info, **fabric_rates(train_info),
+                                layers=TRAIN_CHECK_LAYERS, leaves=n_train,
+                                leaves_moved_by_step=moved,
+                                state_dtype=run.optim.state_dtype))
+    print("checkpoint " + json.dumps(res), flush=True)
     return res
 
 
@@ -1717,6 +1912,11 @@ def main() -> int:
     res = serve(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 4b. qwen3-4b over the fabric: published, restored onto the card and
+    # served from the restored params; a 2-layer train state round trip
+    phase(f"checkpoint {TRAIN_ARCH}")
+    cres = checkpoint(torch, card)
     phase("serve --tiny")
     with torch.inference_mode():
         tiny_serve(torch)
@@ -1815,6 +2015,7 @@ def main() -> int:
         "launches": res["flash_launches"],
         "route_launches": res["flash_launches_by_route"],
         "train_eval_launches": tres["eval_flash_launches"],
+        "checkpoint_serve_launches": cres["serve"]["flash_launches"],
         "max_abs_err": max(c["max_err"] for c in cases),
         "max_err": max(c["max_err"] for c in cases),
         "ms": big["kernel_ms"],

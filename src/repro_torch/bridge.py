@@ -16,6 +16,15 @@ each superblock (``blocks[i]["mamba"][j]``) and ``blocks/ln_mix``/
 reference's tree as numpy arrays, nested or already flat by path name;
 ``params_to_numpy`` gives it back.  bf16 travels as a 16-bit view, because
 ``torch.from_numpy`` does not take numpy's (``ml_dtypes``) bfloat16.
+
+``state_to_reference``/``state_from_reference`` map the trainer's whole
+tree, ``{"params", "opt"}`` (``repro/train/loop.py`` ``_state_tree``), the
+same way and keep torch tensors on their device: ``opt``'s ``m``, ``v``
+and ``ef_error`` follow the params' layout (an int8 moment's ``{"q",
+"s"}`` pair stacks along the same leading axes, its blocks running
+along the last dim), and ``count`` passes through as it is.  The port's
+``CheckpointManager`` saves and restores such a tree under the
+reference's leaf names.
 This module imports no JAX: only tests hand it JAX-made arrays.
 """
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch
 from repro_torch.config.base import DENSE, HYBRID, MOE, SSM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.hybrid import n_mamba, n_moe
+from repro_torch.optim.adamw import tree_map
 
 Params = Dict[str, Any]
 
@@ -125,6 +135,134 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.view(torch.int16).numpy().view(bf16)
 
 
+def _map(fn, node: Any) -> Any:
+    """``fn`` over a leaf, or over each tensor of an int8 ``{"q", "s"}``
+    pair."""
+    if isinstance(node, Mapping):
+        return {k: fn(v) for k, v in node.items()}
+    return fn(node)
+
+
+def _stack(nodes: List[Any]) -> Any:
+    if isinstance(nodes[0], Mapping):
+        return {k: torch.stack([n[k] for n in nodes]) for k in nodes[0]}
+    return torch.stack(nodes)
+
+
+def _get(tree: Params, path: str) -> Any:
+    """The leaf at ``path``; a list of per-layer dicts on the way (a
+    superblock's layers) gives the leaf of each, stacked."""
+    *parents, leaf = path.split("/")
+    for key in parents:
+        tree = tree[key]
+    if isinstance(tree, list):
+        return _stack([lp[leaf] for lp in tree])
+    return tree[leaf]
+
+
+def _tree_to_reference(cfg: ModelConfig, tree: Params) -> Params:
+    """A params-shaped tree of the port -> the reference's stacked layout
+    (torch tensors, each stacked leaf a new tensor)."""
+    out: Params = {}
+    for name in leaf_names(cfg):
+        head, _, rest = name.partition("/")
+        if head == "blocks":
+            node = _stack([_get(block, rest) for block in tree["blocks"]])
+        else:
+            node = _get(tree, name)
+        _set(out, name, node)
+    return out
+
+
+def _tree_from_reference(cfg: ModelConfig, tree: Mapping[str, Any],
+                         what: str = "parameter tree") -> Params:
+    """The reference's stacked layout (torch tensors, nested or flat by
+    path name) -> a params-shaped tree of the port, each per-layer tensor
+    a view of the stacked one.  A missing or unknown leaf raises."""
+    flat = _flatten(tree)
+    want = leaf_names(cfg)
+    nodes: Dict[str, Any] = {}
+    for name in want:
+        if name in flat:
+            nodes[name] = flat[name]
+            continue
+        pair = {k[len(name) + 1:]: v for k, v in flat.items()
+                if k.startswith(name + "/")}
+        if pair:
+            nodes[name] = pair
+    used = set()
+    for name, node in nodes.items():
+        used |= {f"{name}/{k}" for k in node} if isinstance(node, Mapping) \
+            else {name}
+    missing = sorted(set(want) - set(nodes))
+    extra = sorted(set(flat) - used)
+    if missing or extra:
+        raise KeyError(f"{what} does not match {cfg.name}: "
+                       f"missing {missing}, unexpected {extra}")
+    nb, subs = _n_blocks(cfg), _sublayers(cfg)
+    p: Params = {"blocks": [{} for _ in range(nb)]}
+    for name in want:
+        node = nodes[name]
+        head, _, rest = name.partition("/")
+        if head != "blocks":
+            _set(p, name, node)
+            continue
+        lead = next(iter(node.values())) if isinstance(node, Mapping) \
+            else node
+        if lead.shape[0] != nb:
+            raise ValueError(f"{name}: leading axis {lead.shape[0]} is not "
+                             f"the {nb} stacked blocks of num_layers="
+                             f"{cfg.num_layers}")
+        sub, _, leaf = rest.partition("/")
+        if sub in subs and lead.shape[1] != subs[sub]:
+            raise ValueError(f"{name}: second axis {lead.shape[1]} is not "
+                             f"the {subs[sub]} {sub} layers of a superblock")
+        for i, block in enumerate(p["blocks"]):
+            if sub in subs:
+                layers = block.setdefault(sub, [{} for _ in range(subs[sub])])
+                for j, lp in enumerate(layers):
+                    lp[leaf] = _map(lambda t: t[i, j], node)
+            else:
+                _set(block, rest, _map(lambda t: t[i], node))
+    return p
+
+
+# entries of the optimizer state laid out as the params are
+_PARAM_SHAPED = ("m", "v", "ef_error")
+
+
+def state_to_reference(cfg: ModelConfig, state: Mapping[str, Any]) -> Params:
+    """The port's ``{"params": ..., "opt": ...}`` (either or both) -> the
+    reference's layout, torch tensors on their devices."""
+    out: Params = {}
+    for key, sub in state.items():
+        if key == "params":
+            out[key] = _tree_to_reference(cfg, sub)
+        elif key == "opt":
+            out[key] = {k: _tree_to_reference(cfg, v)
+                        if k in _PARAM_SHAPED else v for k, v in sub.items()}
+        else:
+            raise KeyError(f"unknown entry {key!r} of a trainer tree")
+    return out
+
+
+def state_from_reference(cfg: ModelConfig, tree: Mapping[str, Any]
+                         ) -> Params:
+    """The reference's ``{"params": ..., "opt": ...}`` layout (torch
+    tensors) -> the port's; the per-layer tensors are views of the
+    stacked ones."""
+    out: Params = {}
+    for key, sub in tree.items():
+        if key == "params":
+            out[key] = _tree_from_reference(cfg, sub)
+        elif key == "opt":
+            out[key] = {k: _tree_from_reference(cfg, v, f"opt/{k}")
+                        if k in _PARAM_SHAPED else v for k, v in sub.items()}
+        else:
+            raise KeyError(f"unknown entry {key!r} of a trainer tree")
+    return out
+
+
 def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
                       device: DeviceLike = "cuda") -> Params:
     """The reference's parameter tree (numpy leaves) -> the port's params.
@@ -133,58 +271,23 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
     raises.  The per-layer tensors are views of one stacked tensor.
     """
     dev = resolve_device(device)
-    flat = _flatten(tree)
-    want = leaf_names(cfg)
-    missing = sorted(set(want) - set(flat))
-    extra = sorted(set(flat) - set(want))
-    if missing or extra:
-        raise KeyError(f"parameter tree does not match {cfg.name}: "
-                       f"missing {missing}, unexpected {extra}")
-    nb, subs = _n_blocks(cfg), _sublayers(cfg)
-    p: Params = {"blocks": [{} for _ in range(nb)]}
-    for name in want:
-        t = _to_torch(flat[name], dev)
-        head, _, rest = name.partition("/")
-        if head != "blocks":
-            _set(p, name, t)
-            continue
-        if t.shape[0] != nb:
-            raise ValueError(f"{name}: leading axis {t.shape[0]} is not the "
-                             f"{nb} stacked blocks of num_layers="
-                             f"{cfg.num_layers}")
-        sub, _, leaf = rest.partition("/")
-        if sub in subs and t.shape[1] != subs[sub]:
-            raise ValueError(f"{name}: second axis {t.shape[1]} is not the "
-                             f"{subs[sub]} {sub} layers of a superblock")
-        for i, block in enumerate(p["blocks"]):
-            if sub in subs:
-                layers = block.setdefault(sub, [{} for _ in range(subs[sub])])
-                for j, lp in enumerate(layers):
-                    lp[leaf] = t[i, j]
-            else:
-                _set(block, rest, t[i])
-    return p
+    return _tree_from_reference(
+        cfg, tree_map(lambda a: _to_torch(a, dev), tree))
 
 
 def params_to_numpy(cfg: ModelConfig, params: Params) -> Params:
     """The port's params -> the reference's nested tree of numpy arrays."""
-    out: Params = {}
-    for name in leaf_names(cfg):
-        head, _, rest = name.partition("/")
-        if head == "blocks":
-            t = torch.stack([_get(block, rest) for block in params["blocks"]])
-        else:
-            t = _get(params, name)
-        _set(out, name, _to_numpy(t))
-    return out
+    return tree_map(_to_numpy, _tree_to_reference(cfg, params))
 
 
-def _get(tree: Params, path: str) -> torch.Tensor:
-    """The leaf at ``path``; a list of per-layer dicts on the way (a
-    superblock's layers) gives the leaf of each, stacked."""
-    *parents, leaf = path.split("/")
-    for key in parents:
-        tree = tree[key]
-    if isinstance(tree, list):
-        return torch.stack([lp[leaf] for lp in tree])
-    return tree[leaf]
+def state_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
+                     device: DeviceLike = "cuda") -> Params:
+    """``state_from_reference`` of a tree of numpy arrays."""
+    dev = resolve_device(device)
+    return state_from_reference(
+        cfg, tree_map(lambda a: _to_torch(a, dev), tree))
+
+
+def state_to_numpy(cfg: ModelConfig, state: Mapping[str, Any]) -> Params:
+    """``state_to_reference`` as numpy arrays."""
+    return tree_map(_to_numpy, state_to_reference(cfg, state))

@@ -1,0 +1,2 @@
+"""Checkpoints over the XUFS fabric (``repro/checkpoint``)."""
+from repro_torch.checkpoint.ckpt import CheckpointManager  # noqa: F401

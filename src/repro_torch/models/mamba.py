@@ -10,10 +10,14 @@ full-sequence scan:
                  asked for (``mamba.py:106``); the function is the same;
   * otherwise  - the token-by-token scan ``_scan_chunk``, which also
                  returns the final state.
-The reference runs ``_scan_chunk`` over 256-token chunks only to bound
-what its backward keeps (and asserts that the chunk count divides S);
-the sums are the same, so here it runs over the whole sequence, of any
-length.  Chunks for the backward come with training (ROADMAP slice (b)).
+Under grad (grad mode on and an input of the scan requiring grad) the
+token scan runs over ``CHUNK``-token chunks, the last one shorter where
+``CHUNK`` does not divide S, each under ``torch.utils.checkpoint``, the
+state carried from chunk to chunk: the backward keeps a chunk's inputs
+and its final state, not every token's [B, di, N] terms, as the
+reference's ``jax.checkpoint``-ed chunks do (the reference also asserts
+that its chunk count divides S).  Without grad one scan runs over the
+whole sequence; the sums are the same either way.
 """
 from __future__ import annotations
 
@@ -21,12 +25,15 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (
     Params, dense_init, rmsnorm, rmsnorm_init, torch_dtype,
 )
+
+CHUNK = 256
 
 
 def _dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -120,8 +127,19 @@ def mamba_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
         out = kops.mamba_scan(A, dt, b, c, xf, return_state=return_state)
         y, h = out if return_state else (out, None)
     else:
-        h0 = torch.zeros(B, di, N, dtype=torch.float32, device=x.device)
-        y, h = _scan_chunk(A, dt, b, c, xf, h0)
+        h = torch.zeros(B, di, N, dtype=torch.float32, device=x.device)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (A, dt, b, c, xf)):
+            ys = []
+            for s in range(0, S, CHUNK):
+                cut = slice(s, s + CHUNK)
+                y_c, h = checkpoint(_scan_chunk, A, dt[:, cut], b[:, cut],
+                                    c[:, cut], xf[:, cut], h,
+                                    use_reentrant=False)
+                ys.append(y_c)
+            y = torch.cat(ys, dim=1)
+        else:
+            y, h = _scan_chunk(A, dt, b, c, xf, h)
 
     y = y + xf * p["D"]
     out = y.to(dt_) * F.silu(z)

@@ -42,9 +42,14 @@ def make_opt_state(run: RunConfig, params: Params) -> Dict[str, Any]:
 
 
 def _split_microbatches(batch: Batch, n: int) -> Batch:
-    """[B, ...] -> [n, B/n, ...]."""
-    return {k: x.reshape(n, x.shape[0] // n, *x.shape[1:])
-            for k, x in batch.items()}
+    """[B, ...] -> [n, B/n, ...] (positions for VLM split on dim 1)."""
+    def split(name, x):
+        if name == "positions" and x.ndim == 3 and x.shape[0] == 3:
+            return x.reshape(3, n, x.shape[1] // n,
+                             *x.shape[2:]).movedim(1, 0)
+        return x.reshape(n, x.shape[0] // n, *x.shape[1:])
+
+    return {k: split(k, v) for k, v in batch.items()}
 
 
 def make_train_step(run: RunConfig) -> Callable:
