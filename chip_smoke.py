@@ -104,6 +104,28 @@ Phases, each of which raises on failure (exit code != 0):
                feedback allowing one int8 code where the grads straddle a
                tie), and the eval step's ce on the f32 flash kernel
                against the plain path's at 1e-4;
+ 15. trainer - the Trainer loop (``train/loop.py``) over a two-site
+               fabric in a temp dir (~36 GB free needed, removed at the
+               end), qwen3-4b with the phase-13 setup, a Zipf corpus of 4
+               shards at its vocab: (a) 36 layers, one warm-up step then 3
+               timed steps through ``Trainer.train`` (host clock, synced;
+               no save) beside phase 13's bare step, and the peak memory;
+               (b) 2 layers, a straggle at step 1 and a crash at step 3,
+               a save every 2 steps: restarts 1, dropped syncs 1,
+               checkpoints [2, 4], and the batch read after the restore
+               equal to the corpus at the step-2 cursor; every loop
+               iteration's wall time and host seconds in next_batch, the
+               step, pump, pump_callbacks, save and restore, the WAL ops
+               pending before each pump, the checkpoint bytes, the modeled
+               WAN seconds and the device memory a save adds; then the
+               step-4 checkpoint drained 2 WAL ops a pump call, as the
+               steps after a save drain it, each call timed; (c) a fresh
+               Trainer restores cold: step 4, every leaf equal bit for bit,
+               then the eval step on those params through the f32 flash
+               kernel (2 launches) within 1e-4 of the plain path's ce; (d)
+               ``python -m repro_torch.launch.train --tiny`` with a crash
+               at step 6 in a subprocess: exit 0, restarts=1, the card's
+               name printed, the last loss below the first;
 (every serving run checks each admission's splice of every cache entry)
 then prints a JSON line of kernel numbers and, last, the JSON result line.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -141,6 +163,8 @@ TRAIN_ARCH = "qwen3-4b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 2, 2048, 2
 TRAIN_STEPS = 4
 TRAIN_CHECK_LAYERS = 2     # card vs CPU: ~1 B params in f32
+TRAINER_STEPS = 3          # timed Trainer steps at full depth
+TRAINER_SHARDS = 4         # corpus shards, as launch/train.py writes
 CKPT_PROMPTS = 4           # the qwen3-8b traffic's first 4 prompts
 GMM_SWEEP = ([128, 128, 128, 128], [100, 0, 300, 112], [0, 0, 512, 0],
              [1, 2, 3, 506])   # tests/test_kernels.py::test_gmm_sweep
@@ -1825,6 +1849,334 @@ def train_card_vs_cpu(torch, card: str):
     return res
 
 
+def corpus_tokens(cursor: int, n: int, shard_tokens: int, n_shards: int,
+                  vocab: int):
+    """The ``n`` corpus tokens from global position ``cursor`` (wrapping
+    over the shards), straight from ``synth_tokens``."""
+    import numpy as np
+    from repro_torch.data.pipeline import synth_tokens
+    flat = np.concatenate([synth_tokens(0, i, shard_tokens, vocab)
+                           for i in range(n_shards)])
+    return flat[(cursor + np.arange(n)) % len(flat)]
+
+
+def trainer(torch, card: str, bare_ms: float):
+    """The Trainer loop on the card: (a) full-width, full-depth qwen3-4b for
+    3 timed steps; (b) 2 layers with a straggle, a crash and checkpoints
+    through the fabric, each part of a step timed; (c) a cold restore, bit
+    for bit, then the eval step through the f32 flash kernel; (d) the
+    training launcher in a subprocess.  Every fabric file lives in a temp
+    dir, removed when the phase ends."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import Fabric, FabricSpec, MountSpec, SiteSpec
+    from repro_torch.data.pipeline import DataPipeline, SyntheticCorpus
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import FaultEvent, FaultMonitor, Trainer, \
+        make_eval_step
+
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    shard_tokens = max(B * S * 4, 8192)     # as launch/train.py sizes them
+    root = tempfile.mkdtemp(prefix="xufs_trainer_")
+    disk = shutil.disk_usage(root)
+    print(f"trainer: temp dir {root}, {disk.free / 1e9:.1f} GB free of "
+          f"{disk.total / 1e9:.1f} GB", flush=True)
+    t_phase = time.perf_counter()
+
+    def stack(name, cfg, monitor, ckpt_every):
+        fabric = Fabric(FabricSpec(sites=(
+            SiteSpec("home", root=os.path.join(root, name, "home")),
+            SiteSpec("site", root=os.path.join(root, name, "site")))))
+        s = fabric.login("trainer",
+                         mounts=[MountSpec("home/", ("home/scratch/",))])
+        SyntheticCorpus(s.client, "home/data", seed=0, vocab=cfg.vocab_size,
+                        shard_tokens=shard_tokens).materialize(TRAINER_SHARDS)
+        pipe = DataPipeline(s.client, "home/data", cfg, batch=B, seq=S,
+                            n_shards=TRAINER_SHARDS, device="cuda")
+        run = train_run(cfg, batch=B, seq=S, state_dtype="int8",
+                        warmup_steps=1)
+        tr = Trainer(run, pipe, CheckpointManager(s.client, "home/ckpt"),
+                     monitor=monitor, ckpt_every=ckpt_every, device="cuda")
+        return tr, s, fabric.network
+
+    try:
+        # (a) full width and depth: the loop's own cost beside the bare step
+        cfg = get_config(TRAIN_ARCH).replace(param_dtype="float32",
+                                             dtype="bfloat16", remat="full",
+                                             layers_per_step=1)
+        tr, s, net = stack("full", cfg, None, ckpt_every=1000)
+        tr.initialize()
+        warm = tr.train(1)      # the first step pays first-use costs
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = tr.train(TRAINER_STEPS)
+        torch.cuda.synchronize()
+        full_ms = (time.perf_counter() - t0) / TRAINER_STEPS * 1e3
+        full_losses = warm.losses + res.losses
+        full_peak = torch.cuda.max_memory_allocated() / 1e9
+        if not all(math.isfinite(x) for x in full_losses) or \
+                res.checkpoints or warm.checkpoints:
+            raise AssertionError(f"full-depth trainer: losses "
+                                 f"{full_losses}, checkpoints "
+                                 f"{warm.checkpoints + res.checkpoints}")
+        full = dict(layers=cfg.num_layers, params=n_params(tr.params),
+                    losses=full_losses, ms_per_step=full_ms,
+                    bare_step_ms=bare_ms, loop_overhead_ms=full_ms - bare_ms,
+                    max_memory_allocated_gb=full_peak,
+                    wan_clock_s=net.clock)
+        print(f"trainer full depth: {full_ms:.1f} ms a step through the "
+              f"Trainer, {bare_ms:.1f} bare; peak {full_peak:.1f} GB",
+              flush=True)
+        del tr, s, net, warm, res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) 2 layers: a straggle at step 1, a crash at step 3, a save
+        # every 2 steps, each part of every loop iteration timed
+        cfg2 = cfg.replace(num_layers=TRAIN_CHECK_LAYERS)
+        mon = FaultMonitor(n_workers=4, schedule=[
+            FaultEvent(step=1, worker=1, kind="straggle", duration=1),
+            FaultEvent(step=3, worker=2, kind="crash")])
+        tr, s, net = stack("faults", cfg2, mon, ckpt_every=2)
+        tr.initialize()
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(tr._state_tree()))
+        need = 2 * 3 * state_bytes    # 2 saves, ~3 copies each on disk
+        free = shutil.disk_usage(root).free
+        if free < need:
+            raise AssertionError(f"trainer: {free / 1e9:.1f} GB free in "
+                                 f"{root}, the 2 saves need "
+                                 f"~{need / 1e9:.1f} GB")
+        iters, cur = [], {}
+        saved_cursor, after_restore = [], {}
+
+        def timed(name, fn, sync=False):
+            def wrapper(*a, **kw):
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                cur[name] = cur.get(name, 0.0) + time.perf_counter() - t
+                return out
+            return wrapper
+
+        begin, next_batch = mon.begin_step, tr.pipeline.next_batch
+        pump, save, restore = s.client.pump, tr.save_checkpoint, \
+            tr.restore_latest
+
+        def begin_step(step):
+            if cur:
+                cur["wall_s"] = time.perf_counter() - cur.pop("t0")
+                iters.append(dict(cur))
+            cur.clear()
+            cur.update(step=step, t0=time.perf_counter())
+            return begin(step)
+
+        def pumping(*a, **kw):
+            cur["wal_pending"] = len(s.client.oplog.pending())
+            return pump(*a, **kw)
+
+        def batching():
+            if "cursor" in after_restore and "batch" not in after_restore:
+                after_restore["batch"] = tr.pipeline.state()["cursor"]
+                out = next_batch()
+                after_restore["tokens"] = out["tokens"].cpu().numpy()
+                return out
+            return next_batch()
+
+        def saving():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            save()
+            cur["save_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            cur["save_extra_gb"] = (torch.cuda.max_memory_allocated() -
+                                    base) / 1e9
+            saved_cursor.append((tr.step, tr.pipeline.state()["cursor"]))
+
+        def restoring():
+            ok = restore()
+            # its client.sync() drains the WAL through the wrapped pump
+            cur["restore_sync_s"] = cur.pop("pump_s", 0.0)
+            cur.pop("wal_pending", None)
+            after_restore["cursor"] = tr.pipeline.state()["cursor"]
+            after_restore["step"] = tr.step
+            return ok
+
+        mon.begin_step = begin_step
+        tr.pipeline.next_batch = timed("next_batch_s", batching)
+        tr.step_fn = timed("step_s", tr.step_fn, sync=True)
+        s.client.pump = timed("pump_s", pumping)
+        s.client.pump_callbacks = timed("pump_callbacks_s",
+                                        s.client.pump_callbacks)
+        tr.save_checkpoint = timed("save_s", saving)
+        tr.restore_latest = timed("restore_s", restoring)
+        t0 = time.perf_counter()
+        res = tr.train(4)
+        torch.cuda.synchronize()
+        cur["wall_s"] = time.perf_counter() - cur.pop("t0")
+        iters.append(dict(cur))
+        train_s = time.perf_counter() - t0
+        fault_losses = res.losses
+        if res.restarts != 1 or mon.dropped_syncs != 1 or tr.step != 4 or \
+                res.checkpoints != [2, 4] or \
+                not all(math.isfinite(x) for x in fault_losses):
+            raise AssertionError(
+                f"trainer with faults: restarts {res.restarts}, dropped "
+                f"syncs {mon.dropped_syncs}, step {tr.step}, checkpoints "
+                f"{res.checkpoints}, losses {fault_losses}; want 1, 1, 4, "
+                "[2, 4], finite")
+        at2 = dict(saved_cursor)[2]
+        if after_restore.get("cursor") != at2 or \
+                after_restore.get("batch") != at2:
+            raise AssertionError(f"the cursor after the restore "
+                                 f"{after_restore.get('cursor')}, its next "
+                                 f"batch read at {after_restore.get('batch')}"
+                                 f"; saved at step 2: {at2}")
+        want = corpus_tokens(at2, B * S + 1, shard_tokens, TRAINER_SHARDS,
+                             cfg2.vocab_size)[:-1].reshape(B, S)
+        if not (after_restore["tokens"] == want).all():
+            raise AssertionError("the batch read after the restore is not "
+                                 "the corpus at the step-2 cursor")
+        # the step-4 checkpoint drained as the steps after a save drain it,
+        # pump_ops_per_step ops a call: each call's host seconds and bytes
+        train_wan_s, train_bytes = net.clock, net.bytes_sent
+        drain_ms, drain_bytes, drain_wan, heaviest = [], [], [], None
+        while s.client.oplog.pending():
+            names = [r.path.split("/", 3)[-1]
+                     for r in s.client.oplog.pending()[:tr.pump_ops_per_step]]
+            b0, c0, t = net.bytes_sent, net.clock, time.perf_counter()
+            if not pump(max_ops=tr.pump_ops_per_step):
+                raise AssertionError(f"the pump completed no op of {names}")
+            drain_ms.append((time.perf_counter() - t) * 1e3)
+            drain_bytes.append(net.bytes_sent - b0)
+            drain_wan.append(net.clock - c0)
+            if drain_ms[-1] == max(drain_ms):
+                heaviest = names
+        steps_timed = [it for it in iters if "step_s" in it]
+        busy = [it for it in steps_timed if it["wal_pending"]]
+        idle = [it for it in steps_timed if not it["wal_pending"]]
+
+        def mean_ms(rows):
+            # a step's wall time without its save (the pump is part of it)
+            return sum((r["wall_s"] - r.get("save_s", 0.0)) for r in rows) \
+                / max(len(rows), 1) * 1e3
+
+        faults = dict(layers=cfg2.num_layers, params=n_params(tr.params),
+                      state_bytes=state_bytes, losses=fault_losses,
+                      restarts=res.restarts,
+                      dropped_syncs=mon.dropped_syncs,
+                      checkpoints=res.checkpoints,
+                      saved_cursors=saved_cursor,
+                      cursor_after_restore=after_restore["cursor"],
+                      train_s=train_s, train_wan_s=train_wan_s,
+                      train_bytes_sent=train_bytes, wan_clock_s=net.clock,
+                      bytes_sent=net.bytes_sent, iterations=iters,
+                      step_ms_pump_busy=mean_ms(busy),
+                      step_ms_pump_idle=mean_ms(idle[1:]),
+                      first_step_ms=mean_ms(idle[:1]),
+                      steps_pump_busy=len(busy),
+                      steps_pump_idle=len(idle) - 1,
+                      drain_calls=len(drain_ms), drain_ms=drain_ms,
+                      drain_bytes=drain_bytes, drain_wan_s=drain_wan,
+                      drain_s=sum(drain_ms) / 1e3,
+                      drain_max_ms=max(drain_ms),
+                      drain_heaviest_ops=heaviest,
+                      save_peak_gb=max(it.get("save_peak_gb", 0.0)
+                                       for it in iters),
+                      save_extra_gb=max(it.get("save_extra_gb", 0.0)
+                                        for it in iters))
+        print("trainer iterations " + json.dumps(iters), flush=True)
+
+        # (c) a fresh trainer restores cold: step 4, every leaf bit for bit;
+        # then the eval step on the restored params through flash (f32)
+        cold = Trainer(tr.run, DataPipeline(
+            s.client, "home/data", cfg2, batch=B, seq=S,
+            n_shards=TRAINER_SHARDS, device="cuda"), tr.ckpt, device="cuda")
+        cold.initialize()
+        t0 = time.perf_counter()
+        if not cold.restore_latest():
+            raise AssertionError("cold restore found no checkpoint")
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        if cold.step != 4 or cold.pipeline.state() != tr.pipeline.state():
+            raise AssertionError(f"cold restore at step {cold.step}, cursor "
+                                 f"{cold.pipeline.state()}; want 4, "
+                                 f"{tr.pipeline.state()}")
+        n_leaves = assert_trees_equal(torch, cold._state_tree(),
+                                      tr._state_tree(), "cold restore")
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        batch = cold.pipeline.next_batch()
+        ev32 = cfg2.replace(dtype="float32")
+        reset_flash(fa)
+        ev_k = make_eval_step(train_run(ev32.replace(attention_impl="pallas"),
+                                        batch=B, seq=S))(cold.params, batch)
+        torch.cuda.synchronize()
+        by_route = flash_on_route(fa, cfg2.num_layers,
+                                  "eval step on the restored params",
+                                  route="f32")
+        ev_x = make_eval_step(train_run(ev32, batch=B, seq=S))(cold.params,
+                                                               batch)
+        eval_err = abs(float(ev_k["ce"]) - float(ev_x["ce"])) / \
+            abs(float(ev_x["ce"]))
+        if eval_err > 1e-4:
+            raise AssertionError(f"eval ce on flash {float(ev_k['ce'])} vs "
+                                 f"plain {float(ev_x['ce'])}: {eval_err} > "
+                                 "1e-4")
+        restored = dict(step=cold.step, leaves=n_leaves, restore_s=cold_s,
+                        eval_ce=float(ev_k["ce"]),
+                        eval_ce_plain_path=float(ev_x["ce"]),
+                        eval_ce_rel_err=eval_err,
+                        flash_launches=fa.flash_attention.launches,
+                        flash_launches_by_route=by_route)
+        del cold, batch, ev_k, ev_x, s, net
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the launcher, in its own process on the card
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (SRC, os.environ.get("PYTHONPATH")) if p))
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--tiny",
+             "--arch", TRAIN_ARCH, "--steps", "12", "--ckpt-every", "4",
+             "--inject-crash-at", "6", "--workdir",
+             os.path.join(root, "launcher")],
+            env=env, capture_output=True, text=True, timeout=600)
+        launcher_s = time.perf_counter() - t0
+        print(out.stdout, end="", flush=True)
+        m = re.search(r"restarts=(\d+) loss ([-\d.na]+) -> ([-\d.na]+)",
+                      out.stdout)
+        name = torch.cuda.get_device_name(0)
+        if out.returncode or not m or m.group(1) != "1" or \
+                f"device={name}" not in out.stdout or \
+                not float(m.group(3)) < float(m.group(2)):
+            raise AssertionError(f"launcher: exit {out.returncode}, "
+                                 f"output {out.stdout!r}, errors "
+                                 f"{out.stderr[-2000:]!r}")
+        launcher = dict(seconds=launcher_s, restarts=int(m.group(1)),
+                        first_loss=float(m.group(2)),
+                        last_loss=float(m.group(3)))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(card=card, arch=TRAIN_ARCH, batch=B, seq=S,
+               microbatches=TRAIN_MICRO, state_dtype="int8",
+               shard_tokens=shard_tokens, shards=TRAINER_SHARDS,
+               disk_free_gb=disk.free / 1e9, disk_total_gb=disk.total / 1e9,
+               full_depth=full, faults=faults, cold_restore=restored,
+               launcher=launcher, seconds=time.perf_counter() - t_phase)
+    print("trainer " + json.dumps(res), flush=True)
+    return res
+
+
 def tiny_serve(torch):
     """``python -m repro_torch.launch.serve --tiny`` on the card, for the
     dense default and the two families that fit one card only tiny: the
@@ -1994,7 +2346,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"train phase: {time.perf_counter() - t_train:.1f} s", flush=True)
 
-    # 15. kernel line: each kernel at its main path's largest shape
+    # 15. the Trainer loop over the fabric: full depth, then faults and
+    # checkpoints at 2 layers, a cold restore with flash, the launcher
+    phase(f"trainer {TRAIN_ARCH}")
+    trres = trainer(torch, card, tres["ms_per_step"])
+
+    # 16. kernel line: each kernel at its main path's largest shape
     phase("done")
     big = next(c for c in cases if c["Sq"] == 2048)
     if big["route"] != "wgmma" or big["prior_ms"] is None:
@@ -2015,6 +2372,7 @@ def main() -> int:
         "launches": res["flash_launches"],
         "route_launches": res["flash_launches_by_route"],
         "train_eval_launches": tres["eval_flash_launches"],
+        "trainer_eval_launches": trres["cold_restore"]["flash_launches"],
         "checkpoint_serve_launches": cres["serve"]["flash_launches"],
         "max_abs_err": max(c["max_err"] for c in cases),
         "max_err": max(c["max_err"] for c in cases),
@@ -2074,7 +2432,7 @@ def main() -> int:
         "library_ms": gbig["library_ms"],
     }]}), flush=True)
 
-    # 16. result
+    # 17. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

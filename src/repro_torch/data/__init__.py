@@ -1,6 +1,9 @@
-"""Batches for the port's training and eval steps (``repro/data``); the
-sharded pipeline over the fabric waits for ROADMAP port slices (a) and
-(b2)."""
+"""Batches for the port's training and eval steps, and the data pipeline
+over the XUFS fabric (``repro/data``): Zipf token shards in the home
+store, read through the client's cache with read-ahead."""
 from repro_torch.data.batches import (  # noqa: F401
     batch_shapes, make_batch,
+)
+from repro_torch.data.pipeline import (  # noqa: F401
+    DataPipeline, SyntheticCorpus,
 )

@@ -1,7 +1,9 @@
 """The CUDA kernels (flash attention, WKV6 scan, selective scan, grouped
 matmul) against their plain versions, on the card, and each wrapper's
-grad guard; a tiny train step on the card against the CPU's, and the
-eval step through flash while the train step refuses it.
+grad guard; a tiny train step on the card against the CPU's, the
+eval step through flash while the train step refuses it; the data
+pipeline's batches on the card against the CPU's, and a tiny ``Trainer``
+whose restore after a crash equals a cold restore.
 
 Skips without a CUDA card.  On the card (no JAX needed):
 
@@ -431,3 +433,89 @@ def test_eval_step_runs_flash_and_train_step_refuses_it():
     with pytest.raises(RuntimeError, match="no backward"):
         make_train_step(run)(params, state, batch)
     assert all(not p.requires_grad for p in tree_leaves(params))
+
+
+def _tiny_fabric(root):
+    from repro_torch.core import Fabric, FabricSpec
+    from repro_torch.data import SyntheticCorpus
+    s = Fabric(FabricSpec.star(str(root / "h"), str(root / "s"))).login("sci")
+    SyntheticCorpus(s.client, "home/data", seed=0, vocab=512,
+                    shard_tokens=1000).materialize(2)
+    return s
+
+
+def _tiny_pipeline(s, run, device):
+    from repro_torch.data import DataPipeline
+    return DataPipeline(s.client, "home/data", run.model, batch=4, seq=32,
+                        n_shards=2, device=device)
+
+
+@pytest.mark.gpu
+def test_pipeline_batches_on_card_equal_cpu(tmp_path):
+    """The same shards give the same batches on the card as on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    run = _tiny_run()
+    s = _tiny_fabric(tmp_path)
+    card, host = _tiny_pipeline(s, run, "cuda"), _tiny_pipeline(s, run, "cpu")
+    for _ in range(20):                       # 20 x 129 tokens: two wraps
+        got, want = card.next_batch(), host.next_batch()
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            assert got[k].is_cuda and got[k].dtype == v.dtype == torch.int32
+            assert torch.equal(got[k].cpu(), v), k
+    assert card.state() == host.state()
+
+
+@pytest.mark.gpu
+def test_trainer_on_card_restores_as_a_cold_restore(tmp_path):
+    """A tiny Trainer on the card saves at step 2 and crashes at step 3; the
+    state it restores equals, bit for bit and with the data cursor, what a
+    fresh trainer restores cold at that moment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.train import FaultEvent, FaultMonitor, Trainer
+    run = _tiny_run()
+    s = _tiny_fabric(tmp_path)
+    mon = FaultMonitor(n_workers=2, schedule=[
+        FaultEvent(step=3, worker=1, kind="crash")])
+    tr = Trainer(run, _tiny_pipeline(s, run, "cuda"),
+                 CheckpointManager(s.client, "home/ckpt"), monitor=mon,
+                 ckpt_every=2, device="cuda")
+    seen = {}
+    restore = tr.restore_latest
+
+    def restoring():
+        ok = restore()
+        seen["restored"] = (tr.step, tr.pipeline.state(), {
+            k: t.clone() for k, t in _by_path(tr._state_tree()).items()})
+        cold = Trainer(run, _tiny_pipeline(s, run, "cuda"), tr.ckpt,
+                       device="cuda")
+        cold.initialize()
+        assert cold.restore_latest()
+        seen["cold"] = (cold.step, cold.pipeline.state(),
+                        _by_path(cold._state_tree()))
+        return ok
+
+    tr.restore_latest = restoring
+    res = tr.train(4)
+    assert res.restarts == 1 and res.checkpoints == [2, 4]
+    assert all(np.isfinite(res.losses))
+    step, cursor, state = seen["restored"]
+    cstep, ccursor, cstate = seen["cold"]
+    assert step == cstep == 2 and cursor == ccursor == {"cursor": 2 * 129}
+    assert sorted(state) == sorted(cstate)
+    for k, t in cstate.items():
+        assert t.is_cuda and t.dtype == state[k].dtype
+        assert torch.equal(state[k], t), k
+
+
+def _by_path(tree, path=()):
+    if isinstance(tree, dict):
+        return {p: t for k, v in tree.items()
+                for p, t in _by_path(v, path + (k,)).items()}
+    if isinstance(tree, list):
+        return {p: t for i, v in enumerate(tree)
+                for p, t in _by_path(v, path + (i,)).items()}
+    return {path: tree}
