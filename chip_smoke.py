@@ -16,7 +16,10 @@ Phases, each of which raises on failure (exit code != 0):
                launch's route, and on their wgmma routes time the mma.sync
                kernel beside it (``prior_ms``); flash's inputs are model-
                layout views, and SDPA is timed masked and, where it is the
-               same function, ``is_causal``; WKV6's two launches
+               same function, ``is_causal``; flash also at
+               seamless-m4t-medium's non-causal shapes (the encoder,
+               Sq != Skv, ragged, one query row in bf16 and f32, where
+               SDPA unmasked is the same function); WKV6's two launches
                (zeroing the flags, the kernel) are also timed apart; the
                selective scan's final state is checked beside y, each case
                names its states a thread and B = 1 is timed beside B = 4;
@@ -126,6 +129,30 @@ Phases, each of which raises on failure (exit code != 0):
                ``python -m repro_torch.launch.train --tiny`` with a crash
                at step 6 in a subprocess: exit 0, restarts=1, the card's
                name printed, the last loss below the first;
+ 16. encdec  - full-width, full-depth seamless-m4t-medium (12 + 12
+               layers, bf16, seed 0, attention_impl "pallas"): forward and
+               loss_fn on 4 sequences of 1024 frames (frontend [4, 1024,
+               1024]) and 1024 text tokens, 36 flash launches each (12
+               encoder, 12 decoder self, 12 cross), all wgmma; prefill of
+               64-token prompts after the frames (36 launches), then 32
+               greedy decode ticks, 12 launches a tick, each with one
+               query row (cross-attention against the cached frames); ms
+               of each and a profiled tick; the f32 check at 2 + 2 layers
+               (forward, prefill and 8 decode steps on the kernel path
+               against the plain path within 1e-4 of the logits' scale,
+               the greedy tokens equal); then 3 train steps at full depth
+               on the plain path (f32 params, remat "full", int8 moments,
+               2 x 1024 tokens), ms a step, peak memory and the losses;
+ 17. vlm     - full-width qwen2-vl-72b at 16 of its 80 layers (bf16, seed
+               0, attention_impl "pallas"): forward and loss_fn on 2 x 2048
+               positions (512 patches of 8192 features, then 1536 text
+               tokens, M-RoPE positions [3, 2, 2048]), 16 flash launches
+               each; prefill of one such sequence (index 2048), then 32
+               decode ticks on [3, 1, 1] positions; the f32 check at 2
+               layers as in phase 16;
+ 18. train --tiny - ``python -m repro_torch.launch.train --tiny`` for
+               seamless-m4t-medium and qwen2-vl-72b on the card, each in
+               its own process with a crash at step 6: exit 0, restarts=1;
 (every serving run checks each admission's splice of every cache entry)
 then prints a JSON line of kernel numbers and, last, the JSON result line.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -166,6 +193,13 @@ TRAIN_CHECK_LAYERS = 2     # card vs CPU: ~1 B params in f32
 TRAINER_STEPS = 3          # timed Trainer steps at full depth
 TRAINER_SHARDS = 4         # corpus shards, as launch/train.py writes
 CKPT_PROMPTS = 4           # the qwen3-8b traffic's first 4 prompts
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_BATCH, ENCDEC_SEQ = 4, 1024   # 1024 frames and 1024 text tokens each
+ENCDEC_PROMPT = 64         # text tokens a prompt, after the 1024 frames
+ENCDEC_TRAIN_STEPS = 3
+VLM_ARCH = "qwen2-vl-72b"
+VLM_LAYERS = 16            # of 80: 16.6 B params, 33 GB of bf16 weights
+VLM_BATCH, VLM_SEQ = 2, 2048        # 512 patches + 1536 text tokens each
 GMM_SWEEP = ([128, 128, 128, 128], [100, 0, 300, 112], [0, 0, 512, 0],
              [1, 2, 3, 506])   # tests/test_kernels.py::test_gmm_sweep
 SFU_PER_CLOCK_PER_SM = 16  # exponentials (special-function units), sm_90
@@ -252,6 +286,16 @@ def kernel_cases(torch, fa):
     # the tiny configs' head dim, on the mma.sync route
     cases.append(dict(B=2, Hq=4, Hkv=2, Sq=300, Skv=300, D=16, causal=True,
                       q_offset=0, dtype="bfloat16"))
+    # seamless-m4t-medium (16/16 heads, D = 64), none causal: the encoder,
+    # cross-attention in prefill, ragged, and in a decode step (one query
+    # row against the cached frames) in bf16 and f32
+    for B, Sq, Skv, dtype in ((4, 1024, 1024, "bfloat16"),
+                              (4, 64, 1024, "bfloat16"),
+                              (1, 200, 777, "bfloat16"),
+                              (4, 1, 1024, "bfloat16"),
+                              (4, 1, 777, "float32")):
+        cases.append(dict(B=B, Hq=16, Hkv=16, Sq=Sq, Skv=Skv, D=64,
+                          causal=False, q_offset=0, dtype=dtype))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     results = []
@@ -325,12 +369,12 @@ def kernel_cases(torch, fa):
                  bound_ms=bound_ms, bound_by=bound_by)
         results.append(r)
         print("kernel case " + json.dumps(r), flush=True)
-    print("flash, bf16 (ms): B Hq/Hkv Sq, route, kernel, mma.sync, SDPA "
+    print("flash, bf16 (ms): B Hq/Hkv Sq Skv, route, kernel, mma.sync, SDPA "
           "masked, SDPA is_causal, bound", flush=True)
     for r in results:
         if r["dtype"] == "bfloat16":
             print(f"  {r['B']} {r['Hq']}/{r['Hkv']} {r['Sq']:5d} "
-                  f"{r['route']:8s}"
+                  f"{r['Skv']:5d} {r['route']:8s}"
                   f" {r['kernel_ms']:.4f} {r['prior_ms'] or 0:.4f} "
                   f"{r['library_ms']:.4f} {r['library_causal_ms'] or 0:.4f} "
                   f"{r['bound_ms']:.4f}", flush=True)
@@ -2140,29 +2184,10 @@ def trainer(torch, card: str, bare_ms: float):
         torch.cuda.empty_cache()
 
         # (d) the launcher, in its own process on the card
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            p for p in (SRC, os.environ.get("PYTHONPATH")) if p))
-        t0 = time.perf_counter()
-        out = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--tiny",
-             "--arch", TRAIN_ARCH, "--steps", "12", "--ckpt-every", "4",
-             "--inject-crash-at", "6", "--workdir",
-             os.path.join(root, "launcher")],
-            env=env, capture_output=True, text=True, timeout=600)
-        launcher_s = time.perf_counter() - t0
-        print(out.stdout, end="", flush=True)
-        m = re.search(r"restarts=(\d+) loss ([-\d.na]+) -> ([-\d.na]+)",
-                      out.stdout)
-        name = torch.cuda.get_device_name(0)
-        if out.returncode or not m or m.group(1) != "1" or \
-                f"device={name}" not in out.stdout or \
-                not float(m.group(3)) < float(m.group(2)):
-            raise AssertionError(f"launcher: exit {out.returncode}, "
-                                 f"output {out.stdout!r}, errors "
-                                 f"{out.stderr[-2000:]!r}")
-        launcher = dict(seconds=launcher_s, restarts=int(m.group(1)),
-                        first_loss=float(m.group(2)),
-                        last_loss=float(m.group(3)))
+        launcher = train_launcher(torch, TRAIN_ARCH,
+                                  os.path.join(root, "launcher"))
+        if not launcher["last_loss"] < launcher["first_loss"]:
+            raise AssertionError(f"launcher loss did not fall: {launcher}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
@@ -2174,6 +2199,361 @@ def trainer(torch, card: str, bare_ms: float):
                full_depth=full, faults=faults, cold_restore=restored,
                launcher=launcher, seconds=time.perf_counter() - t_phase)
     print("trainer " + json.dumps(res), flush=True)
+    return res
+
+
+def frontend_batch(torch, cfg, B, S):
+    """A seeded batch of ``batch_shapes(cfg, B, S)``: numpy tokens with
+    next-token targets over the text, positions 0..S-1 ([3, B, S] for a
+    VLM), standard normal frontend embeddings from a card generator."""
+    import numpy as np
+    from repro_torch.data import batch_shapes
+    shapes = batch_shapes(cfg, B, S)
+    n = shapes["tokens"][0][1]
+    rng = np.random.RandomState(SEED)
+    seq = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(B, n + 1)))
+    seq = seq.to("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    fshape, fdtype = shapes["frontend"]
+    pshape = shapes["positions"][0]
+    return {"tokens": seq[:, :-1], "targets": seq[:, 1:],
+            "positions": torch.arange(pshape[-1], device="cuda"
+                                      ).expand(pshape),
+            "frontend": torch.randn(fshape, generator=gen, device="cuda"
+                                    ).to(fdtype)}
+
+
+def prompt_of(batch, n_text):
+    """The batch's frames (or patches) with its first ``n_text`` tokens."""
+    out = {"frontend": batch["frontend"],
+           "tokens": batch["tokens"][:, :n_text]}
+    pos = batch["positions"]
+    n_pos = pos.shape[-1] - batch["tokens"].shape[1] + n_text
+    out["positions"] = pos[..., :n_pos]
+    return out
+
+
+class FlashRows:
+    """Records the query rows of every model call to ``ops.flash_attention``
+    while it is entered (the launch counts stay the wrapper's)."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.real, self.rows = ops, ops.flash_attention, []
+
+    def __enter__(self):
+        def recording(q, k, v, **kw):
+            self.rows.append(int(q.shape[1]))
+            return self.real(q, k, v, **kw)
+        self.ops.flash_attention = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.real
+
+
+def decode_ticks(torch, cfg, params, logits, cache, n, feed=None):
+    """``n`` decode steps after a prefill's ``logits``: greedy, or fed the
+    tokens ``feed`` [B, n + 1] (a greedy run's).  Returns (tokens [B, n +
+    1], the logits of each step, host ms of each synchronised step, the
+    cache)."""
+    from repro_torch.models import decode_step
+    toks = [logits[:, -1].argmax(-1, keepdim=True)]
+    if feed is not None:
+        toks = [feed[:, :1]]
+    steps, tick_ms = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = decode_step(cfg, params, toks[-1], cache)
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+        steps.append(logits[:, 0].float())
+        toks.append(logits[:, -1].argmax(-1, keepdim=True)
+                    if feed is None else feed[:, i + 1:i + 2])
+    return torch.cat(toks, dim=1), steps, tick_ms, cache
+
+
+def scoring_phase(torch, cfg, params, batch, want_flash: int):
+    """forward and loss_fn on ``batch``, after a warm-up of each: host ms
+    of each (synchronised), the flash launches by route (each
+    ``want_flash``, all wgmma), finite logits, peak memory, a profile."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import forward, loss_fn
+    loss_fn(cfg, params, batch)                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash(fa)
+    t = time.perf_counter()
+    logits, _ = forward(cfg, params, batch)
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t) * 1e3
+    by_route = flash_on_route(fa, want_flash, f"{cfg.name} forward")
+    B = batch["tokens"].shape[0]
+    S = batch["positions"].shape[-1]
+    if tuple(logits.shape) != (B, S, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"bad forward logits {tuple(logits.shape)}")
+    del logits
+    t = time.perf_counter()
+    loss, metrics = loss_fn(cfg, params, batch)
+    torch.cuda.synchronize()
+    loss_ms = (time.perf_counter() - t) * 1e3
+    flash_on_route(fa, 2 * want_flash, f"{cfg.name} forward and loss")
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"non-finite loss {float(loss)}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_call(torch, lambda: forward(cfg, params, batch),
+                        f"{cfg.name} forward")
+    return dict(forward_ms=forward_ms, loss_fn_ms=loss_ms, loss=float(loss),
+                ce=float(metrics["ce"]), scored_tokens=int(metrics["tokens"]),
+                flash_launches=want_flash, flash_launches_by_route=by_route,
+                max_memory_allocated_gb=peak_gb, profile=prof)
+
+
+def prefill_decode_phase(torch, cfg, params, prompt, max_len: int,
+                         want_prefill: int, want_tick: int):
+    """A timed prefill of ``prompt`` (``want_prefill`` flash launches,
+    wgmma) and MAX_NEW greedy decode ticks (``want_tick`` flash launches a
+    tick, each with one query row); ms of each, finite logits, and a
+    profiled tick after them."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import decode_step, prefill
+    prefill(cfg, params, prompt, max_len=max_len)    # warm-up
+    torch.cuda.synchronize()
+    reset_flash(fa)
+    t = time.perf_counter()
+    logits, cache = prefill(cfg, params, prompt, max_len=max_len)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    flash_on_route(fa, want_prefill, f"{cfg.name} prefill")
+    index = int(cache["index"][0])
+    with FlashRows() as rows:
+        toks, steps, tick_ms, cache = decode_ticks(torch, cfg, params,
+                                                   logits, cache, MAX_NEW)
+    if fa.flash_attention.launches != want_prefill + want_tick * MAX_NEW or \
+            any(r != 1 for r in rows.rows):
+        raise AssertionError(f"{MAX_NEW} decode ticks: "
+                             f"{fa.flash_attention.launches - want_prefill} "
+                             f"flash launches, query rows "
+                             f"{sorted(set(rows.rows))}; want "
+                             f"{want_tick} a tick, each one row")
+    if not all(bool(torch.isfinite(s).all()) for s in steps):
+        raise AssertionError("non-finite decode logits")
+    ticks = sorted(tick_ms[1:])
+    prof = profile_call(torch, lambda: decode_step(cfg, params, toks[:, -1:],
+                                                   cache),
+                        f"{cfg.name} decode_tick")
+    return dict(prefill_ms=prefill_ms, index=index,
+                flash_launches_prefill=want_prefill,
+                flash_launches_per_tick=want_tick,
+                decode_ms_per_tick_mean=sum(tick_ms[1:]) / len(ticks),
+                decode_ms_per_tick_median=ticks[len(ticks) // 2],
+                first_tick_ms=tick_ms[0], tokens=toks[0, :8].tolist(),
+                profile=prof)
+
+
+def f32_paths_phase(torch, cfg, batch, prompt, max_len: int, what: str):
+    """``cfg`` (cut to a few layers) in f32 on the kernel path against the
+    plain attention path: forward logits, prefill logits and 8 decode
+    steps fed the kernel path's greedy tokens, each within 1e-4 of the
+    logits' scale; the greedy tokens equal."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import forward, prefill
+    c32 = cfg.replace(dtype="float32", param_dtype="float32")
+    p32 = seeded_params(torch, c32)
+    batch = {k: v.float() if v.is_floating_point() else v
+             for k, v in batch.items()}
+    prompt = {k: v.float() if v.is_floating_point() else v
+              for k, v in prompt.items()}
+    plain = c32.replace(attention_impl="xla")
+    reset_flash(fa)
+    lo_k, lo_x = forward(c32, p32, batch)[0], forward(plain, p32, batch)[0]
+    fwd_launches = dict(fa.flash_attention.route_launches)
+    errs = {"forward": scaled_err(lo_k, lo_x)}
+    del lo_k, lo_x
+    pk, ck = prefill(c32, p32, prompt, max_len=max_len)
+    px, cx = prefill(plain, p32, prompt, max_len=max_len)
+    errs["prefill"] = scaled_err(pk[:, -1].float(), px[:, -1].float())
+    toks, steps_k, _, _ = decode_ticks(torch, c32, p32, pk, ck, 8)
+    _, steps_x, _, _ = decode_ticks(torch, plain, p32, px, cx, 8, feed=toks)
+    errs["decode"] = max(scaled_err(a, b) for a, b in zip(steps_k, steps_x))
+    same = all(torch.equal(s.argmax(-1), toks[:, i + 1])
+               for i, s in enumerate(steps_x)) and \
+        torch.equal(px[:, -1].argmax(-1), toks[:, 0])
+    if max(errs.values()) > 1e-4 or not same:
+        raise AssertionError(f"{what} f32: kernel vs plain path scaled "
+                             f"errors {errs} (limit 1e-4), greedy tokens "
+                             f"equal: {same}")
+    if fwd_launches["f32"] == 0:
+        raise AssertionError(f"{what} f32 forward ran no f32 flash kernel")
+    res = dict(layers=c32.num_layers, params=n_params(p32),
+               scaled_err=errs, greedy_tokens_equal=same,
+               flash_launches_by_route=dict(fa.flash_attention.route_launches),
+               tokens=toks[0].tolist())
+    del p32
+    return res
+
+
+def encdec(torch, card: str):
+    """Full-width, full-depth seamless-m4t-medium (12 + 12 layers, bf16,
+    seed 0, attention_impl "pallas"): forward and loss with 1024 frames
+    and 1024 text tokens a sequence (36 flash launches: 12 encoder, 12
+    decoder self, 12 cross), prefill of 64-token prompts (36) then 32
+    decode ticks (12 a tick, one query row each), the f32 check at 2 + 2
+    layers, and 3 train steps at full depth on the plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import make_opt_state, make_train_step
+    cfg = get_config(ENCDEC_ARCH).replace(param_dtype="bfloat16",
+                                          attention_impl="pallas")
+    L = cfg.encoder_layers + 2 * cfg.decoder_layers
+    params = seeded_params(torch, cfg)
+    n = n_params(params)
+    batch = frontend_batch(torch, cfg, ENCDEC_BATCH, ENCDEC_SEQ)
+    prompt = prompt_of(batch, ENCDEC_PROMPT)
+    with torch.inference_mode():
+        score = scoring_phase(torch, cfg, params, batch, L)
+        serve = prefill_decode_phase(
+            torch, cfg, params, prompt, ENCDEC_PROMPT + MAX_NEW + 1, L,
+            cfg.decoder_layers)
+        if serve["index"] != ENCDEC_PROMPT:
+            raise AssertionError(f"prefill index {serve['index']}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        small = cfg.replace(encoder_layers=2, decoder_layers=2, num_layers=4)
+        f32 = f32_paths_phase(torch, small, batch, prompt,
+                              ENCDEC_PROMPT + MAX_NEW + 1, cfg.name)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training at full depth on the plain path (the kernels have no
+    # backward): f32 params, bf16 activations, remat "full", int8 moments
+    tcfg = cfg.replace(param_dtype="float32", dtype="bfloat16",
+                       attention_impl="xla", remat="full")
+    run = train_run(tcfg, batch=TRAIN_BATCH, seq=ENCDEC_SEQ,
+                    state_dtype="int8", warmup_steps=1)
+    tparams = seeded_params(torch, tcfg)
+    opt = make_opt_state(run, tparams)
+    tbatch = frontend_batch(torch, tcfg, TRAIN_BATCH, ENCDEC_SEQ)
+    step = make_train_step(run)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(ENCDEC_TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tparams, opt, metrics = step(tparams, opt, tbatch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{cfg.name} train losses {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_call(torch, lambda: step(tparams, opt, tbatch),
+                        f"{cfg.name} train_step", top=10)
+    train = dict(batch=TRAIN_BATCH, seq=ENCDEC_SEQ, microbatches=TRAIN_MICRO,
+                 remat=tcfg.remat, state_dtype="int8", losses=losses,
+                 step_ms=step_ms,
+                 ms_per_step=sum(step_ms[1:]) / len(step_ms[1:]),
+                 max_memory_allocated_gb=peak_gb, profile=prof)
+    del tparams, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(card=card, arch=cfg.name, layers=[cfg.encoder_layers,
+                                                 cfg.decoder_layers],
+               params=n, batch=ENCDEC_BATCH, frames=ENCDEC_SEQ,
+               text=ENCDEC_SEQ, prompt=ENCDEC_PROMPT,
+               tokens_per_s=ENCDEC_BATCH * ENCDEC_SEQ
+               / score["forward_ms"] * 1e3, **score, serve=serve, f32=f32,
+               train=train)
+    print("encdec " + json.dumps(res), flush=True)
+    return res
+
+
+def vlm(torch, card: str):
+    """Full-width qwen2-vl-72b at VLM_LAYERS of its 80 layers (bf16, seed 0,
+    attention_impl "pallas"): forward and loss on 2 x 2048 positions (512
+    patches of 8192 features, then 1536 text tokens; M-RoPE positions
+    [3, 2, 2048]; a flash launch a layer), prefill of one such sequence
+    (index 2048) then 32 decode ticks ([3, 1, 1] positions; decode
+    attention is plain, as in the reference), and the f32 check at 2
+    layers."""
+    from repro_torch.configs import get_config
+    cfg = get_config(VLM_ARCH).replace(num_layers=VLM_LAYERS,
+                                       param_dtype="bfloat16",
+                                       attention_impl="pallas")
+    params = seeded_params(torch, cfg)
+    n = n_params(params)
+    batch = frontend_batch(torch, cfg, VLM_BATCH, VLM_SEQ)
+    one = {k: v[:, :1] if k == "positions" else v[:1]
+           for k, v in batch.items()}
+    with torch.inference_mode():
+        score = scoring_phase(torch, cfg, params, batch, cfg.num_layers)
+        serve = prefill_decode_phase(torch, cfg, params, one,
+                                     VLM_SEQ + MAX_NEW + 1, cfg.num_layers, 0)
+    if serve["index"] != VLM_SEQ:
+        raise AssertionError(f"prefill index {serve['index']}, want "
+                             f"{VLM_SEQ} (patches + text)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        f32 = f32_paths_phase(torch, cfg.replace(num_layers=2), batch, one,
+                              VLM_SEQ + MAX_NEW + 1, cfg.name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(card=card, arch=cfg.name, layers=cfg.num_layers, params=n,
+               batch=VLM_BATCH, seq=VLM_SEQ,
+               patches=batch["frontend"].shape[1],
+               text=batch["tokens"].shape[1],
+               tokens_per_s=VLM_BATCH * VLM_SEQ / score["forward_ms"] * 1e3,
+               **score, serve=serve, f32=f32)
+    print("vlm " + json.dumps(res), flush=True)
+    return res
+
+
+def train_launcher(torch, arch: str, workdir: str) -> dict:
+    """``python -m repro_torch.launch.train --tiny --arch arch`` on the
+    card in its own process, 12 steps with a crash at step 6 and a save
+    every 4: exit 0, restarts=1, the card's name printed, finite losses.
+    Returns its seconds, restarts and first and last losses."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (SRC, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--tiny",
+         "--arch", arch, "--steps", "12", "--ckpt-every", "4",
+         "--inject-crash-at", "6", "--workdir", workdir],
+        env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    print(out.stdout, end="", flush=True)
+    m = re.search(r"restarts=(\d+) loss ([-\d.na]+) -> ([-\d.na]+)",
+                  out.stdout)
+    name = torch.cuda.get_device_name(0)
+    if out.returncode or not m or m.group(1) != "1" or \
+            f"device={name}" not in out.stdout or \
+            not all(math.isfinite(float(x)) for x in m.group(2, 3)):
+        raise AssertionError(f"launcher {arch}: exit {out.returncode}, "
+                             f"output {out.stdout!r}, errors "
+                             f"{out.stderr[-2000:]!r}")
+    return dict(seconds=seconds, restarts=int(m.group(1)),
+                first_loss=float(m.group(2)), last_loss=float(m.group(3)))
+
+
+def tiny_train_launchers(torch):
+    """The training launcher for the enc-dec and VLM archs, tiny, on the
+    card (``train_launcher``), each in a temp dir it removes."""
+    import tempfile
+    res = {}
+    for arch in (ENCDEC_ARCH, VLM_ARCH):
+        with tempfile.TemporaryDirectory(prefix="xufs_train_") as root:
+            res[arch] = train_launcher(torch, arch, root)
+    print("train --tiny " + json.dumps(res), flush=True)
     return res
 
 
@@ -2351,7 +2731,17 @@ def main() -> int:
     phase(f"trainer {TRAIN_ARCH}")
     trres = trainer(torch, card, tres["ms_per_step"])
 
-    # 16. kernel line: each kernel at its main path's largest shape
+    # 16.-18. seamless-m4t-medium (enc-dec) at full width and depth, then
+    # qwen2-vl-72b (VLM) at full width and 16 layers, then the training
+    # launcher for both, tiny
+    phase(f"encdec {ENCDEC_ARCH}")
+    eres = encdec(torch, card)
+    phase(f"vlm {VLM_ARCH}")
+    vres = vlm(torch, card)
+    phase("train --tiny")
+    tiny_train_launchers(torch)
+
+    # 19. kernel line: each kernel at its main path's largest shape
     phase("done")
     big = next(c for c in cases if c["Sq"] == 2048)
     if big["route"] != "wgmma" or big["prior_ms"] is None:
@@ -2374,6 +2764,13 @@ def main() -> int:
         "train_eval_launches": tres["eval_flash_launches"],
         "trainer_eval_launches": trres["cold_restore"]["flash_launches"],
         "checkpoint_serve_launches": cres["serve"]["flash_launches"],
+        "encdec_launches": eres["flash_launches"],
+        "encdec_decode_launches": eres["serve"]["flash_launches_per_tick"],
+        "vlm_launches": vres["flash_launches"],
+        "encdec_cases": [{k: c[k] for k in (
+            "B", "Sq", "Skv", "dtype", "route", "kernel_ms", "bound_ms",
+            "bound_by", "library_ms", "max_err")}
+            for c in cases if c["Hq"] == 16 and c["D"] == 64],
         "max_abs_err": max(c["max_err"] for c in cases),
         "max_err": max(c["max_err"] for c in cases),
         "ms": big["kernel_ms"],
@@ -2432,7 +2829,7 @@ def main() -> int:
         "library_ms": gbig["library_ms"],
     }]}), flush=True)
 
-    # 17. result
+    # 20. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

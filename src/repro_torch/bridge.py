@@ -12,6 +12,9 @@ axis (``blocks/mamba/in_proj`` is [nb, n_mamba, ...], ``blocks/moe/wo``
 each superblock (``blocks[i]["mamba"][j]``) and ``blocks/ln_mix``/
 ``ln_ffn`` as [period, d] tensors.  An MoE block's experts are
 ``blocks/moe/{router,wi_gate,wi_up,wo}`` [L, ...], the router in f32.
+The enc-dec family has two stacks, ``enc_blocks`` [encoder_layers, ...]
+and ``dec_blocks`` [decoder_layers, ...], lists of dicts in the port, and
+``enc_norm``; a frontend projection is ``embed/frontend_proj``.
 ``params_from_numpy`` takes the
 reference's tree as numpy arrays, nested or already flat by path name;
 ``params_to_numpy`` gives it back.  bf16 travels as a 16-bit view, because
@@ -34,7 +37,7 @@ from typing import Any, Dict, List, Mapping
 import numpy as np
 import torch
 
-from repro_torch.config.base import DENSE, HYBRID, MOE, SSM, ModelConfig
+from repro_torch.config.base import ENCDEC, HYBRID, SSM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.hybrid import n_mamba, n_moe
 from repro_torch.optim.adamw import tree_map
@@ -56,13 +59,12 @@ MOE_LEAVES = ("router", "wi_gate", "wi_up", "wo")
 
 
 def leaf_names(cfg: ModelConfig) -> List[str]:
-    """The reference's leaf path names for a dense, MoE, RWKV6 or hybrid
-    ``cfg``."""
-    if cfg.family not in (DENSE, MOE, SSM, HYBRID):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    """The reference's leaf path names for ``cfg``."""
     names = ["embed/embedding", "final_norm"]
     if not cfg.tie_embeddings:
         names.append("embed/unembed")
+    if cfg.frontend_embed_dim:
+        names.append("embed/frontend_proj")
     if cfg.family == SSM:
         return names + [f"blocks/{n}" for n in RWKV_LEAVES]
     attn = ["wq", "wk", "wv", "wo"]
@@ -70,6 +72,14 @@ def leaf_names(cfg: ModelConfig) -> List[str]:
         attn += ["bq", "bk", "bv"]
     if cfg.qk_norm:
         attn += ["q_norm", "k_norm"]
+    mlp = [f"mlp/{n}" for n in MLP_LEAVES]
+    if cfg.family == ENCDEC:
+        enc = ["ln1", "ln2"] + [f"attn/{n}" for n in attn] + mlp
+        dec = (["ln1", "ln_x", "ln2"] + mlp
+               + [f"{a}/{n}" for a in ("self_attn", "cross_attn")
+                  for n in attn])
+        return (names + ["enc_norm"] + [f"enc_blocks/{n}" for n in enc]
+                + [f"dec_blocks/{n}" for n in dec])
     if cfg.family == HYBRID:
         names += ["blocks/ln_mix", "blocks/ln_ffn"]
         names += [f"blocks/mamba/{n}" for n in MAMBA_LEAVES]
@@ -77,7 +87,7 @@ def leaf_names(cfg: ModelConfig) -> List[str]:
         names += ["blocks/ln1", "blocks/ln2"]
     names += [f"blocks/attn/{n}" for n in attn]
     if cfg.family == HYBRID or not cfg.is_moe:
-        names += [f"blocks/mlp/{n}" for n in MLP_LEAVES]
+        names += [f"blocks/{n}" for n in mlp]
     if cfg.is_moe:
         names += [f"blocks/moe/{n}" for n in MOE_LEAVES]
     return names
@@ -93,10 +103,20 @@ def _sublayers(cfg: ModelConfig) -> Dict[str, int]:
     return subs
 
 
-def _n_blocks(cfg: ModelConfig) -> int:
+# the config field that sets each stack's depth
+_LAYERS_FIELD = {"blocks": "num_layers", "enc_blocks": "encoder_layers",
+                 "dec_blocks": "decoder_layers"}
+
+
+def _stacks(cfg: ModelConfig) -> Dict[str, int]:
+    """The stacked entries of the params -> their number of layers (of
+    superblocks, for the hybrid)."""
+    if cfg.family == ENCDEC:
+        return {"enc_blocks": cfg.encoder_layers,
+                "dec_blocks": cfg.decoder_layers}
     if cfg.family == HYBRID:
-        return cfg.num_layers // cfg.hybrid_period
-    return cfg.num_layers
+        return {"blocks": cfg.num_layers // cfg.hybrid_period}
+    return {"blocks": cfg.num_layers}
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -164,10 +184,11 @@ def _tree_to_reference(cfg: ModelConfig, tree: Params) -> Params:
     """A params-shaped tree of the port -> the reference's stacked layout
     (torch tensors, each stacked leaf a new tensor)."""
     out: Params = {}
+    stacks = _stacks(cfg)
     for name in leaf_names(cfg):
         head, _, rest = name.partition("/")
-        if head == "blocks":
-            node = _stack([_get(block, rest) for block in tree["blocks"]])
+        if head in stacks:
+            node = _stack([_get(block, rest) for block in tree[head]])
         else:
             node = _get(tree, name)
         _set(out, name, node)
@@ -199,25 +220,26 @@ def _tree_from_reference(cfg: ModelConfig, tree: Mapping[str, Any],
     if missing or extra:
         raise KeyError(f"{what} does not match {cfg.name}: "
                        f"missing {missing}, unexpected {extra}")
-    nb, subs = _n_blocks(cfg), _sublayers(cfg)
-    p: Params = {"blocks": [{} for _ in range(nb)]}
+    stacks, subs = _stacks(cfg), _sublayers(cfg)
+    p: Params = {head: [{} for _ in range(nb)] for head, nb in stacks.items()}
     for name in want:
         node = nodes[name]
         head, _, rest = name.partition("/")
-        if head != "blocks":
+        if head not in stacks:
             _set(p, name, node)
             continue
         lead = next(iter(node.values())) if isinstance(node, Mapping) \
             else node
-        if lead.shape[0] != nb:
+        if lead.shape[0] != stacks[head]:
+            field = _LAYERS_FIELD[head]
             raise ValueError(f"{name}: leading axis {lead.shape[0]} is not "
-                             f"the {nb} stacked blocks of num_layers="
-                             f"{cfg.num_layers}")
+                             f"the {stacks[head]} stacked blocks of "
+                             f"{field}={getattr(cfg, field)}")
         sub, _, leaf = rest.partition("/")
         if sub in subs and lead.shape[1] != subs[sub]:
             raise ValueError(f"{name}: second axis {lead.shape[1]} is not "
                              f"the {subs[sub]} {sub} layers of a superblock")
-        for i, block in enumerate(p["blocks"]):
+        for i, block in enumerate(p[head]):
             if sub in subs:
                 layers = block.setdefault(sub, [{} for _ in range(subs[sub])])
                 for j, lp in enumerate(layers):

@@ -10,9 +10,10 @@ Determinism: shard contents are a pure function of (seed, shard_index), so
 an elastic re-shard or a restart resumes exactly.  The shards are numpy's
 draws, as the reference's, so the shard files in the home store and the
 batches equal the reference's bit for bit; ``next_batch`` returns int32
-torch tensors on the pipeline's device.  Enc-dec and VLM batches (M-RoPE
-positions, a frontend input) wait for ROADMAP port slice (f):
-``batch_shapes`` raises for them.
+torch tensors on the pipeline's device.  Enc-dec and VLM batches add a
+``frontend`` input, numpy's standard normal draws seeded by the cursor
+(cast to the config's dtype on the device), and a VLM's positions are
+[3, B, S].
 """
 from __future__ import annotations
 
@@ -139,13 +140,20 @@ class DataPipeline:
         tokens = flat[:-1].reshape(toks_shape)
         targets = flat[1:].reshape(shapes["targets"][0])
         pshape, pdtype = shapes["positions"]
-        return {
+        out = {
             "tokens": torch.tensor(tokens, device=self.device),
             "targets": torch.tensor(targets, device=self.device),
             "positions": torch.arange(pshape[-1], dtype=pdtype,
                                       device=self.device
                                       ).expand(pshape).contiguous(),
         }
+        if "frontend" in shapes:
+            fshape, fdtype = shapes["frontend"]
+            rng = np.random.default_rng(self._cursor)
+            out["frontend"] = torch.from_numpy(
+                rng.standard_normal(fshape, dtype=np.float32)
+            ).to(self.device).to(fdtype)
+        return out
 
     def __iter__(self) -> Iterator[Batch]:
         while True:

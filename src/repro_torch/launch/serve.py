@@ -23,7 +23,9 @@ batching and prints tokens/s with the device.
 the card or with ``--device cpu``: at full width one jamba superblock
 with its four MoE layers is 90.5 GB and dbrx 263 GB, more than one card
 holds, and they wait for the multi-device slice (ROADMAP port slice
-(g)).
+(g)).  The enc-dec and VLM archs are refused before any weights are
+made (``serve.engine.check_servable``): the reference's engine cannot
+serve them.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ from repro_torch.core import Fabric, FabricSpec, SiteSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
 from repro_torch.optim.adamw import tree_leaves
-from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.engine import Request, ServeEngine, check_servable
 
 
 def device_name(dev: torch.device) -> str:
@@ -108,6 +110,7 @@ def main() -> None:
            else get_config(args.arch)).replace(param_dtype="bfloat16",
                                                attention_impl="pallas",
                                                scan_impl="pallas")
+    check_servable(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = init_params(cfg, gen, dev)

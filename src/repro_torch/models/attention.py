@@ -6,7 +6,9 @@ full-sequence attention share one module, selected by
   * ``xla``    - plain PyTorch, q-block-chunked softmax(QK^T)V;
   * ``pallas`` - the hand-written CUDA flash-attention kernel through
                  ``kernels/ops.py`` (its plain version on a CPU tensor).
-Decode attention is plain PyTorch, as in the reference.
+Decode attention is plain PyTorch, as in the reference.  Cross-attention
+(the enc-dec decoder's) takes its keys and values from ``kv_x`` at
+``kv_positions``; VLM configs rotate with M-RoPE, positions [3, B, S].
 
 Weights are stored with flattened head dims ([d_model, H*Dh]).
 """
@@ -19,7 +21,8 @@ import torch
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (
-    Params, apply_rope, dense_init, rmsnorm, rmsnorm_init, torch_dtype,
+    Params, apply_mrope, apply_rope, dense_init, rmsnorm, rmsnorm_init,
+    torch_dtype,
 )
 
 ATTN_CHUNK = 2048  # q-block size for the chunked plain path
@@ -27,7 +30,9 @@ NEG_INF = -1e30
 
 
 def attention_init(cfg: ModelConfig, gen: torch.Generator,
-                   device: torch.device) -> Params:
+                   device: torch.device, *, cross: bool = False) -> Params:
+    """Self- or (``cross``) cross-attention weights: the same leaves."""
+    del cross
     dt = torch_dtype(cfg.param_dtype)
     p: Params = {
         "wq": dense_init(gen, (cfg.d_model, cfg.q_dim), dt, device),
@@ -51,29 +56,38 @@ def attention_init(cfg: ModelConfig, gen: torch.Generator,
 
 def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
                  positions: Optional[torch.Tensor],
+                 kv_x: Optional[torch.Tensor] = None,
+                 kv_positions: Optional[torch.Tensor] = None,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns q [B,S,Hq,Dh], k/v [B,S,Hkv,Dh] with qk-norm + RoPE applied."""
-    if cfg.mrope_sections:
-        raise NotImplementedError(
-            "M-RoPE waits for ROADMAP port slice (f), enc-dec / VLM")
+    """Returns q [B,S,Hq,Dh], k/v [B,Skv,Hkv,Dh] with qk-norm + RoPE applied.
+
+    k and v come from ``kv_x`` (default ``x``), rotated by
+    ``kv_positions`` (default ``positions``)."""
     dt = torch_dtype(cfg.dtype)
+    kv_x = x if kv_x is None else kv_x
     q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    k = kv_x @ p["wk"].to(dt)
+    v = kv_x @ p["wv"].to(dt)
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
     B, S = x.shape[:2]
+    Skv = kv_x.shape[1]
     q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    k = k.reshape(B, Skv, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, Skv, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.rms_eps)
         k = rmsnorm(k, p["k_norm"], cfg.rms_eps)
     if positions is not None and cfg.rope_theta > 0.0:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        kp = positions if kv_positions is None else kv_positions
+        if cfg.mrope_sections:
+            q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+            k = apply_mrope(k, kp, cfg.rope_theta, cfg.mrope_sections)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, kp, cfg.rope_theta)
     return q, k, v
 
 
@@ -129,11 +143,14 @@ def _attend(cfg: ModelConfig, q, k, v, *, causal, q_offset: int = 0):
 # ---------------------------------------------------------------------------
 
 def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                    positions: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """Full (train/prefill) attention.  x: [B,S,d] -> [B,S,d]."""
+                    positions: torch.Tensor, *, causal: bool = True,
+                    kv_x: Optional[torch.Tensor] = None,
+                    kv_positions: Optional[torch.Tensor] = None,
+                    ) -> torch.Tensor:
+    """Full (train/prefill) attention.  x: [B,S,d] -> [B,S,d]; with
+    ``kv_x`` [B,Skv,d], cross-attention to it."""
     dt = torch_dtype(cfg.dtype)
-    q, k, v = _project_qkv(cfg, p, x, positions)
+    q, k, v = _project_qkv(cfg, p, x, positions, kv_x, kv_positions)
     o = _attend(cfg, q, k, v, causal=causal)
     B, S = x.shape[:2]
     return o.reshape(B, S, cfg.q_dim) @ p["wo"].to(dt)

@@ -1,4 +1,4 @@
-"""Shared building blocks: norms, RoPE, SwiGLU, embeddings.
+"""Shared building blocks: norms, RoPE/M-RoPE, SwiGLU, embeddings.
 
 Counterpart of ``repro/models/layers.py``.  Parameters are plain nested
 dicts of tensors with the reference's names and layouts (weights stored
@@ -6,12 +6,11 @@ dicts of tensors with the reference's names and layouts (weights stored
 ``torch.Generator`` and device; they match the reference in distribution
 only (``jax.random`` bits cannot be reproduced), which is why the tests
 bring the reference's own parameters over with ``repro_torch.bridge``.
-M-RoPE waits for the VLM slice.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,7 +65,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float,
@@ -86,6 +85,40 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_freqs(x.shape[-1], theta, x.device)            # [half]
     angles = positions[..., None].float() * freqs                # [..., S, half]
     cos = torch.cos(angles)[..., None, :]                        # [..., S, 1, half]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): rotate ``x`` [..., S, H, D] by
+    ``positions`` [3, ..., S] (t, h, w).
+
+    Frequency index i in [0, D/2) takes its position id from the section
+    it falls into: sections = (n_t, n_h, n_w), sum = D/2.  Positions
+    without the leading (t, h, w) axis raise; the reference's gather
+    fills the missing sections with NaN there.
+    """
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"head_dim / 2 = {half}")
+    if positions.dim() != x.dim() - 1 or positions.shape[0] != len(sections):
+        raise ValueError(f"M-RoPE wants positions [{len(sections)}, ..., S] "
+                         f"for x {tuple(x.shape)}; got "
+                         f"{tuple(positions.shape)}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # [half]
+    # section j's frequencies take position ids positions[j]: the
+    # reference's per-frequency gather, by slices (no host round trip)
+    bounds = [0]
+    for n in sections:
+        bounds.append(bounds[-1] + n)
+    angles = torch.cat([positions[j].float()[..., None] * freqs[a:b]
+                        for j, (a, b) in enumerate(zip(bounds, bounds[1:]))],
+                       dim=-1)                                   # [..., S, half]
+    cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -120,15 +153,16 @@ def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def embedding_init(cfg: ModelConfig, gen: torch.Generator,
                    device: torch.device) -> Params:
-    if cfg.frontend_embed_dim:
-        raise NotImplementedError(
-            "modality frontends wait for ROADMAP port slice (f), enc-dec / VLM")
     dt = torch_dtype(cfg.param_dtype)
     p = {"embedding": embed_init(gen, (cfg.vocab_size, cfg.d_model), dt,
                                  device)}
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dt,
                                   device)
+    if cfg.frontend_embed_dim:
+        # modality frontend stub projection (identity-shaped if dims equal)
+        p["frontend_proj"] = dense_init(
+            gen, (cfg.frontend_embed_dim, cfg.d_model), dt, device)
     return p
 
 

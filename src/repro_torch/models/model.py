@@ -1,26 +1,31 @@
-"""Top-level model API: init / forward / loss / prefill / decode, for the
-``DENSE``, ``MOE``, ``SSM`` (RWKV6) and ``HYBRID`` (Jamba) families.
+"""Top-level model API: init / forward / loss / prefill / decode, per
+family.
 
 Counterpart of ``repro/models/model.py``.  The reference stacks layer
 parameters and runs ``jax.lax.scan`` over them; here ``p["blocks"]`` is a
 list of per-layer (hybrid: per-superblock) dicts and depth is a Python
-loop.  The caches keep the reference's layouts: dense ``k``/``v`` [L, B,
-max_len, kv_dim]; RWKV6 ``tshift``/``cshift`` [L, B, d] and ``wkv``
-[L, B, H, D, D] (f32); hybrid ``k``/``v`` [nb, B, max_len, kv_dim],
-``conv`` [nb, n_mamba, B, K-1, di] and ``ssm`` [nb, n_mamba, B, di, N]
-(f32); all with a per-slot ``index`` [B] (int32).  ``cache_batch_axes``
-says which axis of each entry is the batch.  ``MOE`` runs the ``DENSE``
-branches (its blocks hold ``moe`` in place of ``mlp``, and their aux
-losses reach ``loss_fn``).  The other families wait for their own slices
-(ROADMAP).
+loop; the enc-dec family has two such lists, ``enc_blocks`` and
+``dec_blocks``.  The caches keep the reference's layouts: dense and VLM
+``k``/``v`` [L, B, max_len, kv_dim]; RWKV6 ``tshift``/``cshift`` [L, B, d]
+and ``wkv`` [L, B, H, D, D] (f32); hybrid ``k``/``v`` [nb, B, max_len,
+kv_dim], ``conv`` [nb, n_mamba, B, K-1, di] and ``ssm`` [nb, n_mamba, B,
+di, N] (f32); enc-dec ``k``/``v`` [Ld, B, max_len, kv_dim] and the
+encoder-side ``xk``/``xv`` [Ld, B, Senc, kv_dim] (``init_cache`` gives
+them ``max_len`` rows, as the reference's does); all with a per-slot
+``index`` [B] (int32).  ``cache_batch_axes`` says which axis of each
+entry is the batch.  ``MOE`` and ``VLM`` run the ``DENSE`` branches
+(MoE blocks hold ``moe`` in place of ``mlp``, and their aux losses reach
+``loss_fn``; VLM prepends its frontend embeddings and rotates with
+M-RoPE, positions [3, B, S]).
 
 Under grad mode ``forward`` and ``loss_fn`` differentiate through autograd
 on the plain paths (``attention_impl``/``scan_impl`` ``"xla"``; a CUDA
 kernel refuses grad, ``kernels/_grad.py``).  ``cfg.remat`` is the
 reference's ``_maybe_remat``: each group of ``cfg.layers_per_step`` blocks
-runs inside ``torch.utils.checkpoint``, saving nothing inside the group
-(``"full"``) or the matmul outputs (``"dots"``, the reference's
-``checkpoint_dots``).  Without grad mode the groups run as they are.
+(of either enc-dec stack) runs inside ``torch.utils.checkpoint``, saving
+nothing inside the group (``"full"``) or the matmul outputs (``"dots"``,
+the reference's ``checkpoint_dots``).  Without grad mode the groups run as
+they are.
 """
 from __future__ import annotations
 
@@ -33,22 +38,16 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
-from repro_torch.config.base import DENSE, HYBRID, MOE, SSM, ModelConfig
+from repro_torch.config.base import ENCDEC, HYBRID, SSM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as B
+from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as RW
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in (DENSE, MOE, SSM, HYBRID):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; ROADMAP.md lists the "
-            "slice that ports it")
 
 
 # ---------------------------------------------------------------------------
@@ -58,9 +57,19 @@ def _require_ported(cfg: ModelConfig) -> None:
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = "cuda") -> Params:
     """Random parameters drawn from ``generator`` (on ``device``'s type)."""
-    _require_ported(cfg)
     dev = resolve_device(device)
     dt = L.torch_dtype(cfg.param_dtype)
+    p: Params = {
+        "embed": L.embedding_init(cfg, generator, dev),
+        "final_norm": L.rmsnorm_init(cfg.d_model, dt, dev),
+    }
+    if cfg.family == ENCDEC:
+        p["enc_blocks"] = [ED.enc_block_init(cfg, generator, dev)
+                           for _ in range(cfg.encoder_layers)]
+        p["dec_blocks"] = [ED.dec_block_init(cfg, generator, dev)
+                           for _ in range(cfg.decoder_layers)]
+        p["enc_norm"] = L.rmsnorm_init(cfg.d_model, dt, dev)
+        return p
     n = cfg.num_layers
     if cfg.family == HYBRID:
         block_init, n = HY.superblock_init, n // cfg.hybrid_period
@@ -68,16 +77,34 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         block_init = RW.rwkv_init
     else:
         block_init = B.block_init
-    return {
-        "embed": L.embedding_init(cfg, generator, dev),
-        "final_norm": L.rmsnorm_init(cfg.d_model, dt, dev),
-        "blocks": [block_init(cfg, generator, dev) for _ in range(n)],
-    }
+    p["blocks"] = [block_init(cfg, generator, dev) for _ in range(n)]
+    return p
 
 
 # ---------------------------------------------------------------------------
 # embeddings / logits
 # ---------------------------------------------------------------------------
+
+def _frontend(cfg: ModelConfig, p: Params, batch: Batch) -> torch.Tensor:
+    """The frontend embeddings [B,Sf,E] projected to [B,Sf,d]."""
+    dt = L.torch_dtype(cfg.dtype)
+    return batch["frontend"].to(dt) @ p["embed"]["frontend_proj"].to(dt)
+
+
+def _prepends_frontend(cfg: ModelConfig, batch: Batch) -> bool:
+    """Whether the batch's frontend embeddings go before its tokens (VLM);
+    the enc-dec frontend feeds the encoder instead."""
+    return bool(cfg.frontend_embed_dim) and "frontend" in batch \
+        and cfg.family != ENCDEC
+
+
+def _embed_inputs(cfg: ModelConfig, p: Params, batch: Batch) -> torch.Tensor:
+    """Token embeddings, with modality-frontend embeddings prepended."""
+    h = L.embed_tokens(cfg, p["embed"], batch["tokens"])
+    if _prepends_frontend(cfg, batch):
+        h = torch.cat([_frontend(cfg, p, batch), h], dim=1)
+    return h
+
 
 def _logits(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     h = L.rmsnorm(h, p["final_norm"], cfg.rms_eps)
@@ -166,20 +193,43 @@ def _scan_blocks(cfg: ModelConfig, blocks: List[Params], h: torch.Tensor,
 def forward(cfg: ModelConfig, p: Params, batch: Batch,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B,S,V], aux_loss)."""
-    _require_ported(cfg)
     positions = batch["positions"]
-    h = L.embed_tokens(cfg, p["embed"], batch["tokens"])
+    h = _embed_inputs(cfg, p, batch)
+    if cfg.family == ENCDEC:
+        enc_h, enc_positions = _encode(cfg, p, batch)
+        blocks = p["dec_blocks"]
+
+        def apply_fn(lp, hh):
+            return ED.dec_block_apply(cfg, lp, hh, positions, enc_h,
+                                      enc_positions), None
+    else:
+        blocks = p["blocks"]
     if cfg.family == SSM:
         def apply_fn(lp, hh):
             return _rwkv_block(cfg, lp, hh), None
     elif cfg.family == HYBRID:
         def apply_fn(lp, hh):
             return HY.superblock_apply(cfg, lp, hh, positions)
-    else:
+    elif cfg.family != ENCDEC:
         def apply_fn(lp, hh):
             return B.block_apply(cfg, lp, hh, positions)
-    h, aux = _scan_blocks(cfg, p["blocks"], h, apply_fn)
+    h, aux = _scan_blocks(cfg, blocks, h, apply_fn)
     return _logits(cfg, p, h), aux
+
+
+def _encode(cfg: ModelConfig, p: Params, batch: Batch,
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder over the projected frontend: (enc_h [B,Senc,d] after
+    ``enc_norm``, enc_positions [B,Senc])."""
+    enc_h = _frontend(cfg, p, batch)
+    Bsz, Senc = enc_h.shape[:2]
+    enc_positions = torch.arange(Senc, device=enc_h.device).expand(Bsz, Senc)
+
+    def enc_apply(lp, hh):
+        return ED.enc_block_apply(cfg, lp, hh, enc_positions), None
+
+    enc_h, _ = _scan_blocks(cfg, p["enc_blocks"], enc_h, enc_apply)
+    return L.rmsnorm(enc_h, p["enc_norm"], cfg.rms_eps), enc_positions
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +244,9 @@ def loss_fn(cfg: ModelConfig, p: Params, batch: Batch,
     """Next-token cross-entropy + z-loss + aux; targets < 0 are masked."""
     logits, aux = forward(cfg, p, batch)
     targets = batch["targets"]
+    if _prepends_frontend(cfg, batch):
+        # frontend positions carry no next-token target; score text tail only
+        logits = logits[:, -targets.shape[1]:, :]
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     mask = (targets >= 0).float()
@@ -215,11 +268,12 @@ def loss_fn(cfg: ModelConfig, p: Params, batch: Batch,
 def cache_batch_axes(cfg: ModelConfig) -> Dict[str, int]:
     """The batch (slot) axis of each cache entry, as the reference's
     ``cache_logical_axes`` places ``"batch"``."""
-    _require_ported(cfg)
     if cfg.family == HYBRID:
         axes = {"k": 1, "v": 1, "conv": 2, "ssm": 2}
     elif cfg.family == SSM:
         axes = {"tshift": 1, "cshift": 1, "wkv": 1}
+    elif cfg.family == ENCDEC:
+        axes = {"k": 1, "v": 1, "xk": 1, "xv": 1}
     else:
         axes = {"k": 1, "v": 1}
     return dict(axes, index=0)
@@ -227,7 +281,6 @@ def cache_batch_axes(cfg: ModelConfig) -> Dict[str, int]:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = "cuda") -> Params:
-    _require_ported(cfg)
     dev = resolve_device(device)
     index = torch.zeros((batch,), dtype=torch.int32, device=dev)
     if cfg.family == HYBRID:
@@ -240,10 +293,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         c["index"] = index
         return c
     dt = L.torch_dtype(cfg.dtype)
-    shape = (cfg.num_layers, batch, max_len, cfg.kv_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev),
-            "index": index}
+    names = ("k", "v")
+    n = cfg.num_layers
+    if cfg.family == ENCDEC:
+        names, n = ("k", "v", "xk", "xv"), cfg.decoder_layers
+    shape = (n, batch, max_len, cfg.kv_dim)
+    c = {name: torch.zeros(shape, dtype=dt, device=dev) for name in names}
+    c["index"] = index
+    return c
 
 
 def prefill(cfg: ModelConfig, p: Params, batch: Batch, max_len: int,
@@ -256,11 +313,22 @@ def prefill(cfg: ModelConfig, p: Params, batch: Batch, max_len: int,
     selective-scan kernel under ``scan_impl="pallas"`` (it returns the
     state too), where the reference takes its token loop.  Those states
     have no sequence axis, so ``max_len`` bounds only the attention K/V.
+    The enc-dec cache holds the encoder-side ``xk``/``xv`` at the
+    encoder's length; a VLM's index counts its frontend positions.
     """
-    _require_ported(cfg)
     positions = batch["positions"]
-    h = L.embed_tokens(cfg, p["embed"], batch["tokens"])
-    if cfg.family == SSM:
+    h = _embed_inputs(cfg, p, batch)
+    if cfg.family == ENCDEC:
+        enc_h, enc_positions = _encode(cfg, p, batch)
+        ents = []
+        for lp in p["dec_blocks"]:
+            h, ent = ED.dec_block_prefill(cfg, lp, h, positions, enc_h,
+                                          enc_positions)
+            ents.append(ent)
+        cache = _embed_cache(cfg, ents, h.shape[0], max_len)
+        for name in ("xk", "xv"):
+            cache[name] = torch.stack([e[name] for e in ents])
+    elif cfg.family == SSM:
         ents = []
         for lp in p["blocks"]:
             h, ent = _rwkv_block(cfg, lp, h, return_state=True)
@@ -281,8 +349,11 @@ def prefill(cfg: ModelConfig, p: Params, batch: Batch, max_len: int,
             h, kv, _ = B.block_prefill(cfg, lp, h, positions)
             kvs.append(kv)
         cache = _embed_cache(cfg, kvs, h.shape[0], max_len)
-    Bsz, S = batch["tokens"].shape
-    cache["index"] = torch.full((Bsz,), S, dtype=torch.int32, device=h.device)
+    Bsz, prefilled = batch["tokens"].shape
+    if _prepends_frontend(cfg, batch):
+        prefilled += batch["frontend"].shape[1]
+    cache["index"] = torch.full((Bsz,), prefilled, dtype=torch.int32,
+                                device=h.device)
     return _logits(cfg, p, h[:, -1:, :]), cache
 
 
@@ -308,15 +379,21 @@ def decode_step(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
     """One-token decode.  tokens: [B,1] -> (logits [B,1,V], new cache).
 
     The state tensors of ``cache`` (k/v, tshift/cshift/wkv, conv/ssm) are
-    updated in place and shared by the returned cache; its ``index`` is a
+    updated in place (the enc-dec ``xk``/``xv`` are only read) and shared by the returned cache; its ``index`` is a
     new tensor, one higher for every slot, active or not, as in the
     reference.
     """
-    _require_ported(cfg)
     index = cache["index"]
     h = L.embed_tokens(cfg, p["embed"], tokens)
     pos = index[:, None]
-    for i, lp in enumerate(p["blocks"]):
+    if cfg.mrope_sections:
+        pos = index[None, :, None].expand(3, tokens.shape[0], 1)
+    blocks = p["dec_blocks"] if cfg.family == ENCDEC else p["blocks"]
+    for i, lp in enumerate(blocks):
+        if cfg.family == ENCDEC:
+            ce = {k: cache[k][i] for k in ("k", "v", "xk", "xv")}
+            h = ED.dec_block_decode(cfg, lp, h, pos, ce, index)
+            continue
         if cfg.family == HYBRID:
             ce = {k: cache[k][i] for k in ("k", "v", "conv", "ssm")}
             h = HY.superblock_decode(cfg, lp, h, pos, ce, index)

@@ -1,1 +1,3 @@
-from repro_torch.serve.engine import Request, ServeEngine, SlotState  # noqa: F401
+from repro_torch.serve.engine import (  # noqa: F401
+    Request, ServeEngine, SlotState, check_servable,
+)

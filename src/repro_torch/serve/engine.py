@@ -7,6 +7,11 @@ together, one ``decode_step`` per tick.  As in the reference, only the
 first token of a request (at admission) is sampled with its temperature;
 every later token is the argmax.  Sampling draws from the engine's own
 ``torch.Generator``.  The shared cache is updated in place.
+
+The enc-dec and VLM families are refused (``check_servable``): the
+reference's engine cannot serve them either (its admission batch has no
+``frontend``, which the enc-dec encoder needs, and its [1, S] positions
+give M-RoPE NaN), and the port adds no serving path the reference lacks.
 """
 from __future__ import annotations
 
@@ -16,11 +21,25 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.config.base import ModelConfig
+from repro_torch.config.base import ENCDEC, VLM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import (
     cache_batch_axes, decode_step, init_cache, prefill,
 )
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise for a family the reference's engine cannot serve."""
+    if cfg.family == ENCDEC:
+        raise NotImplementedError(
+            f"{cfg.name}: the engine serves no enc-dec model; the "
+            "reference's admits a batch without the encoder's 'frontend' "
+            "and raises KeyError (ROADMAP Queue 3, reference caveats)")
+    if cfg.family == VLM:
+        raise NotImplementedError(
+            f"{cfg.name}: the engine serves no VLM; the reference's passes "
+            "[1, S] positions to M-RoPE, which wants [3, B, S], and emits "
+            "NaN logits (ROADMAP Queue 3, reference caveats)")
 
 
 @dataclass
@@ -44,6 +63,7 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
                  max_len: int = 512, seed: int = 0,
                  device: DeviceLike = "cuda"):
+        check_servable(cfg)
         self.cfg = cfg
         self.params = params
         self.slots = slots

@@ -200,7 +200,10 @@ CASES = [("qwen3-8b", "float32", False, {}),
          (HYBRID, "float32", False, {}),
          (HYBRID, "bfloat16", False, {}),
          ("qwen3-4b", "float32", True, {}),
-         (HYBRID, "bfloat16", True, {})]
+         (HYBRID, "bfloat16", True, {}),
+         ("seamless-m4t-medium", "bfloat16", False, {}),
+         ("seamless-m4t-medium", "float32", True, {}),
+         ("qwen2-vl-72b", "bfloat16", True, {})]
 IDS = [f"{a.split('-')[0]}-{d}-{'trainer' if t else 'params'}"
        for a, d, t, _ in CASES]
 

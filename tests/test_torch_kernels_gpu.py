@@ -1,6 +1,7 @@
 """The CUDA kernels (flash attention, WKV6 scan, selective scan, grouped
-matmul) against their plain versions, on the card, and each wrapper's
-grad guard; a tiny train step on the card against the CPU's, the
+matmul) against their plain versions, on the card (flash also at the
+enc-dec family's non-causal shapes and through a tiny enc-dec and VLM
+prefill and decode), and each wrapper's grad guard; a tiny train step on the card against the CPU's, the
 eval step through flash while the train step refuses it; the data
 pipeline's batches on the card against the CPU's, and a tiny ``Trainer``
 whose restore after a crash equals a cold restore.
@@ -90,6 +91,78 @@ def test_flash_model_layout_takes_its_route(B, Hq, Hkv, Sq, Skv, D, causal,
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv", [
+    (4, 1024, 1024),      # seamless encoder self-attention
+    (4, 64, 1024),        # cross-attention in prefill: text against frames
+    (1, 200, 777),        # ragged both
+    (4, 1, 1024),         # cross-attention in a decode step: one query row
+    (4, 1, 777),          # one query row, ragged frames
+    (2, 1, 33),           # one query row, one short kv tile
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_cross_attention_takes_its_route(B, Sq, Skv, dtype):
+    """The enc-dec family's non-causal shapes at its 16/16 heads and head
+    dim 64 (bf16: the wgmma route; f32: the f32 route), through
+    ``ops.flash_attention``, against the plain version at 2e-2 (bf16) or
+    2e-5 (f32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    H, D = 16, 64
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(Sq + Skv)
+    q, k, v = (torch.randn(B, S, H, D, generator=gen).to(dt).cuda()
+               for S in (Sq, Skv, Skv))
+    kernel = tfa.route(dt, D)
+    assert kernel == ("wgmma" if dtype == "bfloat16" else "f32")
+    by_route = tfa.flash_attention.route_launches[kernel]
+    got = tops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.route_launches[kernel] == by_route + 1
+    tr = lambda t: t.transpose(1, 2)
+    want = tr(tfa.flash_attention_plain(tr(q), tr(k), tr(v), causal=False))
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "qwen2-vl-72b"])
+def test_encdec_and_vlm_decode_on_flash_match_plain_path(arch):
+    """A tiny config at head dim 64 in f32 on the card: prefill and three
+    greedy decode steps through flash (the enc-dec cross-attention with
+    one query row) against the plain attention path; logits within 1e-4,
+    the same tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = get_tiny_config(arch).replace(
+        head_dim=64, dtype="float32", param_dtype="float32",
+        attention_impl="pallas",
+        mrope_sections=(16, 8, 8) if arch == "qwen2-vl-72b" else ())
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    batch = make_batch(cfg, 2, 48, device="cuda")
+    plain = cfg.replace(attention_impl="xla")
+    outs = []
+    for c in (cfg, plain):
+        launches = tfa.flash_attention.launches
+        logits, cache = prefill(c, params, batch, max_len=64)
+        toks, seq = logits[:, -1].argmax(-1, keepdim=True), [logits]
+        for _ in range(3):
+            logits, cache = decode_step(c, params, toks, cache)
+            toks = logits[:, -1].argmax(-1, keepdim=True)
+            seq.append(logits)
+        torch.cuda.synchronize()
+        outs.append((seq, tfa.flash_attention.launches - launches))
+    (ks, kn), (ps, pn) = outs
+    assert kn > 0 and pn == 0
+    for a, b in zip(ks, ps):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        assert torch.equal(a[:, -1].argmax(-1), b[:, -1].argmax(-1))
 
 
 def _guarded_calls():

@@ -18,8 +18,8 @@ from repro.configs import get_config as jax_config
 from repro.models import decode_step as jdecode
 from repro.models import forward as jforward
 from repro.models import prefill as jprefill
-from repro_torch.configs import ARCH_IDS, get_config, get_tiny_config
-from repro_torch.models import decode_step, forward, init_params, prefill
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.models import decode_step, forward, prefill
 from _torch_parity import batches, configs, f32, params
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -32,13 +32,6 @@ def test_configs_match_reference_field_by_field(arch):
         dataclasses.asdict(jax_config(arch))
     jcfg, tcfg = configs(arch)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
-
-
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "qwen2-vl-72b"])
-def test_unported_families_name_their_roadmap_slice(arch):
-    """The config lookup raises for a family still to come."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(get_tiny_config(arch), torch.Generator(), "cpu")
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

@@ -183,11 +183,3 @@ def test_cuda_default_raises_without_a_card(session):
         tpipe.DataPipeline(session.client, "home/data", _tiny(), batch=2,
                            seq=16)
 
-
-def test_encdec_and_vlm_batches_wait_for_slice_f(session):
-    from repro_torch.config.base import ENCDEC, VLM
-    for family in (ENCDEC, VLM):
-        p = _pipe(session, _tiny().replace(family=family))
-        with pytest.raises(NotImplementedError, match="slice \\(f\\)"):
-            p.next_batch()
-        assert p.state() == {"cursor": 0}
