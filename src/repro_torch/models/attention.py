@@ -54,6 +54,30 @@ def attention_init(cfg: ModelConfig, gen: torch.Generator,
 # projections
 # ---------------------------------------------------------------------------
 
+def _rotate(cfg: ModelConfig, t: torch.Tensor,
+            positions: torch.Tensor) -> torch.Tensor:
+    """RoPE (M-RoPE where ``cfg.mrope_sections``) of [B,S,H,Dh] heads."""
+    if cfg.rope_theta <= 0.0:
+        return t
+    if cfg.mrope_sections:
+        return apply_mrope(t, positions, cfg.rope_theta, cfg.mrope_sections)
+    return apply_rope(t, positions, cfg.rope_theta)
+
+
+def _project_q(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """q [B,S,Hq,Dh] with qk-norm + RoPE applied."""
+    dt = torch_dtype(cfg.dtype)
+    q = x @ p["wq"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+    B, S = x.shape[:2]
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.rms_eps)
+    return q if positions is None else _rotate(cfg, q, positions)
+
+
 def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
                  positions: Optional[torch.Tensor],
                  kv_x: Optional[torch.Tensor] = None,
@@ -65,29 +89,20 @@ def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
     ``kv_positions`` (default ``positions``)."""
     dt = torch_dtype(cfg.dtype)
     kv_x = x if kv_x is None else kv_x
-    q = x @ p["wq"].to(dt)
+    q = _project_q(cfg, p, x, positions)
     k = kv_x @ p["wk"].to(dt)
     v = kv_x @ p["wv"].to(dt)
     if cfg.qkv_bias:
-        q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    B, S = x.shape[:2]
-    Skv = kv_x.shape[1]
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    B, Skv = kv_x.shape[:2]
     k = k.reshape(B, Skv, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(B, Skv, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.rms_eps)
         k = rmsnorm(k, p["k_norm"], cfg.rms_eps)
-    if positions is not None and cfg.rope_theta > 0.0:
-        kp = positions if kv_positions is None else kv_positions
-        if cfg.mrope_sections:
-            q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-            k = apply_mrope(k, kp, cfg.rope_theta, cfg.mrope_sections)
-        else:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, kp, cfg.rope_theta)
+    if positions is not None:
+        k = _rotate(cfg, k, positions if kv_positions is None
+                    else kv_positions)
     return q, k, v
 
 

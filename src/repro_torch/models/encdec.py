@@ -16,8 +16,8 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models.attention import (
-    _attend, _project_qkv, attention_apply, attention_decode, attention_init,
-    attention_prefill,
+    _attend, _project_q, _project_qkv, attention_apply, attention_decode,
+    attention_init, attention_prefill,
 )
 from repro_torch.models.layers import (
     Params, mlp_apply, mlp_init, rmsnorm, rmsnorm_init, torch_dtype,
@@ -120,7 +120,7 @@ def dec_block_decode(cfg: ModelConfig, p: Params, h: torch.Tensor,
     xn = rmsnorm(h, p["ln_x"], cfg.rms_eps)
     B = h.shape[0]
     Senc = cache["xk"].shape[1]
-    q, _, _ = _project_qkv(cfg, p["cross_attn"], xn, positions)
+    q = _project_q(cfg, p["cross_attn"], xn, positions)
     kk = cache["xk"].reshape(B, Senc, cfg.num_kv_heads, cfg.head_dim)
     vv = cache["xv"].reshape(B, Senc, cfg.num_kv_heads, cfg.head_dim)
     o = _attend(cfg, q, kk, vv, causal=False)

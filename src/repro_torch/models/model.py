@@ -195,22 +195,20 @@ def forward(cfg: ModelConfig, p: Params, batch: Batch,
     """Returns (logits [B,S,V], aux_loss)."""
     positions = batch["positions"]
     h = _embed_inputs(cfg, p, batch)
+    blocks = p["dec_blocks"] if cfg.family == ENCDEC else p["blocks"]
     if cfg.family == ENCDEC:
         enc_h, enc_positions = _encode(cfg, p, batch)
-        blocks = p["dec_blocks"]
 
         def apply_fn(lp, hh):
             return ED.dec_block_apply(cfg, lp, hh, positions, enc_h,
                                       enc_positions), None
-    else:
-        blocks = p["blocks"]
-    if cfg.family == SSM:
+    elif cfg.family == SSM:
         def apply_fn(lp, hh):
             return _rwkv_block(cfg, lp, hh), None
     elif cfg.family == HYBRID:
         def apply_fn(lp, hh):
             return HY.superblock_apply(cfg, lp, hh, positions)
-    elif cfg.family != ENCDEC:
+    else:
         def apply_fn(lp, hh):
             return B.block_apply(cfg, lp, hh, positions)
     h, aux = _scan_blocks(cfg, blocks, h, apply_fn)
