@@ -153,6 +153,23 @@ Phases, each of which raises on failure (exit code != 0):
  18. train --tiny - ``python -m repro_torch.launch.train --tiny`` for
                seamless-m4t-medium and qwen2-vl-72b on the card, each in
                its own process with a crash at step 6: exit 0, restarts=1;
+ 19. ep      - dbrx-132b's MoE layer at full width (d 6144, 16 experts,
+               top-4, d_ff 10,752, bf16, capacity factor 1.25) across 4
+               ranks of a (data=1, model=4) mesh, ``parallel/ep_moe.py``
+               ``ep_moe_apply``: 4 x 2048 tokens, 4 experts a rank, three
+               all-to-alls and 3 gmm launches (wgmma) a rank a call; the
+               ranks are spawned processes, one a card with nccl where
+               there are 4 cards, else all on card 0 with gloo's
+               collectives on CUDA tensors (it prints backend, world and
+               cards); the weights and inputs are the parent's tensors,
+               shared with the ranks; each rank's output against
+               ``ep_moe_plain`` in f32 (relative RMS error within 1e-2),
+               the kept assignments equal, CUDA-event ms of the layer, its
+               all-to-alls and expert products, peak memory; an f32 case
+               on a (data=2, model=2) mesh at width 256 and capacity
+               factor 32 against ``ep_moe_plain`` and ``moe_apply`` (1e-5
+               scaled); the gmm kernel at a rank's received rows, timed
+               beside torch.bmm; a failed or hung rank fails the phase;
 (every serving run checks each admission's splice of every cache entry)
 then prints a JSON line of kernel numbers and, last, the JSON result line.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -212,6 +229,16 @@ SEED = 0
 # the flash kernel against the plain version in f32 on the same inputs:
 # limits on the relative RMS error (``rms_rel_err``)
 RMS_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+EP_ARCH = "dbrx-132b"
+EP_RANKS = 4               # a (data=1, model=4) mesh: 4 of 16 experts a rank
+EP_BATCH = 4               # 4 x 2048 = 8192 tokens, dbrx's chunk_tokens
+EP_SEQ = 2048
+EP_F32_MESH = (2, 2)       # the f32 case's (data, model) mesh
+EP_F32_WIDTH = (256, 512)  # its d_model and d_ff_expert
+EP_F32_BATCH, EP_F32_SEQ = 4, 128
+EP_F32_CF = 32.0           # capacity factor: no assignment dropped
+EP_LIMIT = 300             # seconds the ranks may take, spawn to exit
+EP_PG_TIMEOUT = 120        # seconds a collective may wait for a peer
 
 
 def card_line(query: str = "name,power.limit") -> str:
@@ -2598,6 +2625,382 @@ def tiny_serve(torch):
     return res
 
 
+def ep_rank(rank: int, job: dict, results) -> None:
+    """One of phase 19's ranks, in its own process: joins the group, then
+    ``ep_rank_work``; its result (or its traceback) goes to ``results``."""
+    import datetime
+    import traceback
+    import torch
+    import torch.distributed as dist
+    try:
+        dev = torch.device("cuda", rank if job["backend"] == "nccl" else 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(
+            job["backend"], store=dist.FileStore(job["store"], EP_RANKS),
+            rank=rank, world_size=EP_RANKS,
+            timeout=datetime.timedelta(seconds=EP_PG_TIMEOUT))
+        try:
+            res = ep_rank_work(torch, rank, dev, job)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, res))
+    except BaseException:
+        results.put((rank, {"error": traceback.format_exc()}))
+        raise SystemExit(1)
+
+
+def ep_rank_work(torch, rank: int, dev, job: dict) -> dict:
+    """dbrx-132b's MoE layer on the (data=1, model=4) mesh, a warm-up call
+    then a timed one (CUDA events around the layer, each all-to-all and
+    the expert products), then the f32 case on a (data=2, model=2) mesh;
+    each output is written into the parent's tensor."""
+    import torch.distributed as dist
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel import ep_moe as ep
+
+    # gloo's all-to-all on CUDA tensors, at a small size first
+    mesh = make_test_mesh(1, EP_RANKS, device_type="cuda")
+    probe = torch.arange(EP_RANKS, device=dev, dtype=torch.float32) \
+        + 10 * rank
+    got = ep._all_to_all(probe, mesh.get_group("model"))
+    want = torch.arange(EP_RANKS, device=dev, dtype=torch.float32) * 10 \
+        + rank
+    if not got.is_cuda or not torch.equal(got, want):
+        raise AssertionError(f"all_to_all_single on {job['backend']}: "
+                             f"{got.tolist()} != {want.tolist()}")
+
+    cfg = job["cfg"]
+    x = job["x"].to(dev)
+    lp = {k: v.to(dev) for k, v in
+          ep.local_params(job["params"], mesh).items()}
+    for name, t in [("x", x)] + list(lp.items()):
+        if not t.is_cuda:
+            raise AssertionError(f"rank {rank}: {name} on {t.device}")
+    marks = {"a2a": [], "experts": []}
+    routing = {}
+    real_a2a, real_ffn, real_pack = ep._all_to_all, ep._expert_ffn, \
+        ep._local_pack
+
+    def timed(key, fn):
+        def wrapper(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            marks[key].append((s, e))
+            return out
+        return wrapper
+
+    def recording(cfg_, logits, xf, n, cap):
+        top, ids = torch.topk(torch.softmax(logits.float(), -1),
+                              cfg_.moe.experts_per_token + 1, dim=-1)
+        pack = real_pack(cfg_, logits, xf, n, cap)
+        routing.update(ids=ids[:, :-1].sort(-1).values.cpu().numpy(),
+                       gap=(top[:, -2] - top[:, -1]).cpu().numpy(),
+                       keep=pack.keep.cpu().numpy(), cap=cap)
+        return pack
+
+    sizes = []
+    real_gmm_sorted = ep.kops.gmm_sorted
+
+    def gmm_sizes(lhs, rhs, group_sizes):
+        sizes.append(group_sizes.tolist())
+        return real_gmm_sorted(lhs, rhs, group_sizes)
+
+    ep._all_to_all = timed("a2a", real_a2a)
+    ep._expert_ffn = timed("experts", real_ffn)
+    ep._local_pack = recording
+    ep.kops.gmm_sorted = gmm_sizes
+    try:
+        with torch.no_grad():
+            ep.ep_moe_apply(cfg, lp, x, mesh)            # warm-up
+            torch.cuda.synchronize()
+            for v in marks.values():
+                v.clear()
+            sizes.clear()
+            torch.cuda.reset_peak_memory_stats(dev)
+            gm.gmm.launches = 0
+            gm.gmm.route_launches = dict.fromkeys(gm.ROUTES, 0)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            y = ep.ep_moe_apply(cfg, lp, x, mesh)
+            end.record()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            launches = gm.gmm.launches
+            by_route = dict(gm.gmm.route_launches)
+            if not y.is_cuda:
+                raise AssertionError(f"rank {rank}: output on {y.device}")
+            job["out"][rank].copy_(y)
+            torch.cuda.synchronize()
+            res = dict(
+                rank=rank, device=str(dev), layer_ms=start.elapsed_time(end),
+                host_ms=host_ms,
+                a2a_ms=[s.elapsed_time(e) for s, e in marks["a2a"]],
+                experts_ms=[s.elapsed_time(e) for s, e in marks["experts"]],
+                gmm_launches=launches, gmm_route_launches=by_route,
+                group_sizes=sizes[0], filled_slots=int(sum(sizes[0])),
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                routing=dict(routing) if rank == 0 else None)
+            del y, lp, x
+            torch.cuda.empty_cache()
+
+            # the f32 case: drop-free on a (data=2, model=2) mesh
+            mesh22 = make_test_mesh(*EP_F32_MESH, device_type="cuda")
+            b = mesh22.get_local_rank("data")
+            x32 = job["x32"].to(dev)
+            b_loc = x32.shape[0] // EP_F32_MESH[0]
+            p32 = {k: v.to(dev) for k, v in
+                   ep.local_params(job["p32"], mesh22).items()}
+            gm.gmm.launches = 0
+            gm.gmm.route_launches = dict.fromkeys(gm.ROUTES, 0)
+            y32 = ep.ep_moe_apply(job["cfg32"], p32,
+                                  x32[b * b_loc:(b + 1) * b_loc], mesh22,
+                                  capacity_factor=EP_F32_CF)
+            torch.cuda.synchronize()
+            job["out32"][rank].copy_(y32)
+            torch.cuda.synchronize()
+            res.update(f32_coord=mesh22.get_coordinate(),
+                       f32_gmm_route_launches=dict(gm.gmm.route_launches))
+    finally:
+        ep._all_to_all, ep._expert_ffn, ep._local_pack = \
+            real_a2a, real_ffn, real_pack
+        ep.kops.gmm_sorted = real_gmm_sorted
+    return res
+
+
+def run_ep_ranks(torch, job: dict) -> list:
+    """Spawn the EP_RANKS ranks on ``job``; each rank's result, or raise
+    if a rank fails or is still running after EP_LIMIT seconds (then it is
+    killed)."""
+    import queue
+    import torch.multiprocessing as tmp
+    ctx = tmp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=ep_rank, args=(r, job, results))
+             for r in range(EP_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + EP_LIMIT
+    got = {}
+    while len(got) < EP_RANKS and time.monotonic() < deadline:
+        try:
+            rank, res = results.get(timeout=5.0)
+        except queue.Empty:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break         # a rank died before it could report
+            continue
+        got[rank] = res
+        if "error" in res:
+            break
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for r in hung:
+        procs[r].kill()
+        procs[r].join(10)
+    errors = {r: res["error"] for r, res in got.items() if "error" in res}
+    if hung or errors or len(got) < EP_RANKS or \
+            any(p.exitcode != 0 for p in procs):
+        raise AssertionError(
+            f"EP ranks: hung {hung}, exit codes "
+            f"{[p.exitcode for p in procs]}, results from {sorted(got)}\n"
+            + "\n".join(f"--- rank {r} ---\n{e}" for r, e in errors.items()))
+    return [got[r] for r in range(EP_RANKS)]
+
+
+def ep_gmm_case(torch, gm, sizes, K: int, N: int, what: str) -> dict:
+    """The gmm kernel at one EP rank's products: its received rows sorted
+    by local expert (``sizes``, the empty slots past the groups) against
+    the plain version in f32 (4e-3 scaled, as ``gmm_cases``); kernel,
+    plain and ``torch.bmm`` times (bmm over equal groups of M / G rows,
+    the same FLOPs' dense layout) and the bound of these rows."""
+    G = len(sizes)
+    M = EP_RANKS * ep_capacity()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    lhs = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+    rhs = (torch.randn(G, K, N, generator=gen, device="cuda")
+           * K ** -0.5).to(torch.bfloat16)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    route = gm.route(lhs.dtype, K, N, G)
+    n0 = gm.gmm.route_launches[route]
+    out = gm.gmm(lhs, rhs, gs)
+    if gm.gmm.route_launches[route] != n0 + 1 or route != "wgmma":
+        raise AssertionError(f"EP gmm {what} took {route}")
+    want = gm.gmm_plain(lhs.float(), rhs.float(), gs)
+    err = float((out.float() - want).abs().max()) / float(want.abs().max())
+    if err > 4e-3 or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"EP gmm {what}: scaled error {err}")
+    del want
+    kernel_ms = cuda_ms(torch, lambda: gm.gmm(lhs, rhs, gs), iters=10)
+    plain_ms = cuda_ms(torch, lambda: gm.gmm_plain(lhs, rhs, gs), iters=3,
+                       warmup=1)
+    x = lhs.view(G, M // G, K)
+    library_ms = cuda_ms(torch, lambda: torch.bmm(x, rhs), iters=10)
+    bound_ms, bound_by, work = gmm_bound(sizes, M, K, N, "bfloat16")
+    res = dict(case=f"ep {what}", route=route, G=G, M=M, K=K, N=N,
+               rows=sum(sizes), sizes=sizes, checked_err=err,
+               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by, **work)
+    print("kernel case gmm " + json.dumps(res), flush=True)
+    return res
+
+
+def ep_capacity() -> int:
+    """Slots a dbrx rank sends each destination (``ep_moe.capacity``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.parallel.ep_moe import capacity
+    return capacity(get_config(EP_ARCH), EP_BATCH * EP_SEQ, EP_RANKS)
+
+
+def ep_moe_phase(torch, card: str) -> dict:
+    """Phase 19: dbrx-132b's MoE layer at full width across EP_RANKS ranks
+    (``parallel/ep_moe.py`` ``ep_moe_apply``, the experts through gmm), and
+    the f32 case; see the module docstring."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.models.moe import moe_apply, moe_init
+    from repro_torch.parallel import ep_moe as ep
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= EP_RANKS else "gloo"
+    print(f"ep: backend {backend} world {EP_RANKS} cards {cards}",
+          flush=True)
+    _build.load("gmm")     # built here, before the ranks load it
+    cfg = get_config(EP_ARCH).replace(param_dtype="bfloat16",
+                                      scan_impl="pallas")
+    m = cfg.moe
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = moe_init(cfg, gen, torch.device("cuda"))
+    x = torch.randn(EP_BATCH, EP_SEQ, cfg.d_model, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    c32 = cfg.replace(d_model=EP_F32_WIDTH[0], dtype="float32",
+                      param_dtype="float32", moe=dataclasses.replace(
+                          m, d_ff_expert=EP_F32_WIDTH[1]))
+    p32 = moe_init(c32, gen, torch.device("cuda"))
+    x32 = torch.randn(EP_F32_BATCH, EP_F32_SEQ, c32.d_model, generator=gen,
+                      device="cuda")
+    out = torch.empty((EP_RANKS,) + tuple(x.shape), dtype=x.dtype,
+                      device="cuda")
+    b32 = EP_F32_BATCH // EP_F32_MESH[0]
+    out32 = torch.empty((EP_RANKS, b32, EP_F32_SEQ, c32.d_model),
+                        device="cuda")
+    expert_gb = sum(params[k].numel() * 2 for k in ep.EXPERT_LEAVES) / 1e9
+    print(f"ep: {EP_ARCH} MoE layer, d {cfg.d_model}, {m.num_experts} "
+          f"experts top-{m.experts_per_token}, d_ff {m.d_ff_expert}, "
+          f"{expert_gb:.2f} GB of bf16 experts, "
+          f"{expert_gb / EP_RANKS:.2f} GB a rank; {EP_BATCH} x {EP_SEQ} "
+          f"tokens, capacity {ep_capacity()} a destination", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ep_store_") as tmp:
+        job = dict(backend=backend, store=os.path.join(tmp, "store"),
+                   cfg=cfg, params=params, x=x, out=out, cfg32=c32, p32=p32,
+                   x32=x32, out32=out32)
+        ranks = run_ep_ranks(torch, job)
+    ranks_s = time.perf_counter() - t0
+    torch.cuda.ipc_collect()     # the ranks' handles on the shared tensors
+    for r in ranks:
+        if r["gmm_launches"] != 3 or r["gmm_route_launches"]["wgmma"] != 3:
+            raise AssertionError(f"rank {r['rank']}: gmm launches "
+                                 f"{r['gmm_route_launches']}, want 3 wgmma")
+        if r["f32_gmm_route_launches"]["mma_sync"] != 3:
+            raise AssertionError(f"rank {r['rank']} f32: gmm launches "
+                                 f"{r['f32_gmm_route_launches']}")
+        print("ep rank " + json.dumps({k: v for k, v in r.items()
+                                       if k != "routing"}), flush=True)
+
+    # the yardstick: every rank's function in one process, in f32
+    routes = []
+    real_pack = ep._local_pack
+
+    def recording(cfg_, logits, xf, n, cap):
+        pack = real_pack(cfg_, logits, xf, n, cap)
+        routes.append(dict(ids=torch.topk(logits.float(), m.experts_per_token,
+                                          dim=-1)[1].sort(-1).values.cpu()
+                           .numpy(), keep=pack.keep.cpu().numpy()))
+        return pack
+
+    ep._local_pack = recording
+    try:
+        with torch.no_grad():
+            plain = ep.ep_moe_plain(
+                cfg.replace(dtype="float32", scan_impl="xla"),
+                {k: v.float() for k, v in params.items()}, x.float(),
+                n_tp=EP_RANKS)[0]
+    finally:
+        ep._local_pack = real_pack
+    mine = ranks[0]["routing"]
+    differ = (mine["ids"] != routes[0]["ids"]).any(-1)
+    for tok in differ.nonzero()[0][:20].tolist():
+        print("routing difference " + json.dumps(dict(
+            token=tok, gap=float(mine["gap"][tok]))), flush=True)
+    kept_equal = bool((mine["keep"] == routes[0]["keep"]).all())
+    dropped = 1.0 - float(mine["keep"].mean())
+    errs = [rms_rel_err(torch, out[r], plain[r]) for r in range(EP_RANKS)]
+    same = all(torch.equal(out[r], out[0]) for r in range(EP_RANKS))
+    del plain
+    if not kept_equal or max(errs) > RMS_TOL["bfloat16"] or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"EP dbrx vs plain f32: kept mask equal "
+                             f"{kept_equal}, relative RMS errors {errs}")
+
+    # the f32 case against the plain function and the port's moe_apply
+    c32x = c32.replace(scan_impl="xla")
+    with torch.no_grad():
+        plain32 = ep.ep_moe_plain(c32x, p32, x32, n_tp=EP_F32_MESH[1],
+                                  n_batch=EP_F32_MESH[0],
+                                  capacity_factor=EP_F32_CF)
+        want32 = moe_apply(c32x.replace(moe=dataclasses.replace(
+            c32.moe, capacity_factor=EP_F32_CF)), p32, x32)[0]
+    f32_errs = {}
+    for r in ranks:
+        b, j = r["f32_coord"]
+        got = out32[r["rank"]]
+        for name, want in (("plain", plain32[b, j]),
+                           ("moe_apply", want32[b * b32:(b + 1) * b32])):
+            e = float((got - want).abs().max() / want.abs().max())
+            f32_errs[f"{r['rank']} {name}"] = e
+            if e > 1e-5:
+                raise AssertionError(f"EP f32 rank {r['rank']} vs {name}: "
+                                     f"scaled error {e}")
+    del out32, plain32, want32, p32, x32
+
+    # the gmm kernel at a rank's received rows
+    sizes = ranks[0]["group_sizes"]
+    cases = [ep_gmm_case(torch, gm, sizes, cfg.d_model, m.d_ff_expert,
+                         "gate/up"),
+             ep_gmm_case(torch, gm, sizes, m.d_ff_expert, cfg.d_model,
+                         "down")]
+    res = dict(card=card, backend=backend, world=EP_RANKS, cards=cards,
+               arch=EP_ARCH, tokens=EP_BATCH * EP_SEQ,
+               capacity=ep_capacity(), dropped_share=dropped,
+               kept_mask_equal=kept_equal,
+               routing_differences=int(differ.sum()),
+               rms_rel_err_vs_plain_f32=errs, ranks_bitwise_equal=same,
+               f32_scaled_err=f32_errs, ranks_seconds=ranks_s,
+               layer_ms=[r["layer_ms"] for r in ranks],
+               host_ms=[r["host_ms"] for r in ranks],
+               a2a_ms=[r["a2a_ms"] for r in ranks],
+               experts_ms=[r["experts_ms"] for r in ranks],
+               gmm_launches=[r["gmm_launches"] for r in ranks],
+               filled_slots=[r["filled_slots"] for r in ranks],
+               peak_gb=[r["peak_gb"] for r in ranks],
+               gmm_cases=[{k: c[k] for k in (
+                   "case", "rows", "K", "N", "kernel_ms", "plain_ms",
+                   "library_ms", "bound_ms", "bound_by")} for c in cases])
+    print("ep " + json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2756,8 +3159,15 @@ def main() -> int:
     vres = vlm(torch, card)
     phase("train --tiny")
     tiny_train_launchers(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 19. kernel line: each kernel at its main path's largest shape
+    # 19. dbrx-132b's MoE layer at full width across four ranks (expert
+    # parallelism through all-to-alls, the experts through gmm)
+    phase(f"ep {EP_ARCH}")
+    epres = ep_moe_phase(torch, card)
+
+    # 20. kernel line: each kernel at its main path's largest shape
     phase("done")
     big = next(c for c in cases if c["Sq"] == 2048)
     if big["route"] != "wgmma" or big["prior_ms"] is None:
@@ -2843,9 +3253,11 @@ def main() -> int:
         "bound_ms": gbig["bound_ms"],
         "bound_by": gbig["bound_by"],
         "library_ms": gbig["library_ms"],
+        "ep_launches_per_rank": epres["gmm_launches"],
+        "ep_cases": epres["gmm_cases"],
     }]}), flush=True)
 
-    # 20. result
+    # 21. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

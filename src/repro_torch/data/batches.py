@@ -6,7 +6,9 @@ tokens after them, with M-RoPE positions [3, B, S].
 
 Random tokens and frontends come from a ``torch.Generator`` on the
 batch's device, so their bits differ from ``jax.random``'s; a parity test
-feeds the same numpy batch to both packages instead.
+feeds the same numpy batch to both packages instead.  ``make_specs`` gives
+the same entries as tensors on the ``meta`` device (shapes and dtypes, no
+storage), the counterpart of the reference's ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
@@ -71,3 +73,27 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int,
                                       generator=generator, dtype=dtype,
                                       device=dev)
     return out
+
+
+def make_specs(cfg: ModelConfig, batch: int, seq: int) -> Batch:
+    """``meta`` tensors with ``batch_shapes``' shapes and dtypes."""
+    return {name: torch.empty(shape, dtype=dtype, device="meta")
+            for name, (shape, dtype) in batch_shapes(cfg, batch, seq).items()}
+
+
+def decode_token_shapes(cfg: ModelConfig, batch: int,
+                        ) -> Tuple[Tuple[int, ...], torch.dtype]:
+    return (batch, 1), torch.int32
+
+
+def make_decode_tokens(cfg: ModelConfig, batch: int,
+                       generator: Optional[torch.Generator] = None,
+                       device: DeviceLike = "cuda") -> torch.Tensor:
+    """One uniform random token in [0, vocab) a sequence, [batch, 1]."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(1)
+    shape, dtype = decode_token_shapes(cfg, batch)
+    return torch.randint(0, cfg.vocab_size, shape, generator=generator,
+                         dtype=dtype, device=dev)

@@ -6,8 +6,9 @@ the reference's.  The flash and WKV6 kernels read and write through
 strides, so their inputs go to them as transposed views and their outputs
 come back in the model's layout, with no copies.  The selective scan
 takes the model's layout as it is.  The grouped matmul takes rows sorted
-by group (``gmm_sorted``, the reference's wrapper of that name) or the MoE
-capacity buffer [E, C+1, d] (``gmm_equal``).
+by group (``gmm_sorted``, the reference's wrapper of that name), a table
+of tile -> group (``gmm_padded``, the reference's Pallas interface) or the
+MoE capacity buffer [E, C+1, d] (``gmm_equal``).
 """
 from __future__ import annotations
 
@@ -57,6 +58,41 @@ def gmm_sorted(lhs: torch.Tensor, rhs: torch.Tensor,
     of lhs and no host-side look at the sizes.
     """
     return _gmm.gmm(lhs.contiguous(), rhs.contiguous(), group_sizes)
+
+
+def gmm_padded(lhs: torch.Tensor, rhs: torch.Tensor,
+               tile_group_ids: torch.Tensor, block_m: int = 128
+               ) -> torch.Tensor:
+    """lhs: [M,K]; rhs: [G,K,N]; tile_group_ids: [M / block_m] -> [M,N]:
+    the rows of tile t, ``lhs[t*block_m:(t+1)*block_m]``, times
+    ``rhs[tile_group_ids[t]]`` (``block_m`` capped at M, as the reference
+    caps it).
+
+    The reference's tile-table interface, over the port's ``gmm``: the
+    table (host-side routing metadata there too) becomes group sizes of
+    whole tiles; tiles whose ids are not sorted are permuted into group
+    order for the launch and back after it.
+    """
+    M, K = lhs.shape
+    G, _, N = rhs.shape
+    bm = min(block_m, M)
+    ids = [int(g) for g in tile_group_ids.tolist()]
+    if bm <= 0 or M % bm or len(ids) != M // bm:
+        raise ValueError(f"want M a multiple of block_m={bm} and one group "
+                         f"id a tile; got M={M}, {len(ids)} ids")
+    if any(not 0 <= g < G for g in ids):
+        raise ValueError(f"tile group ids must lie in [0, {G}): {ids}")
+    sizes = torch.tensor([ids.count(g) * bm for g in range(G)],
+                         dtype=torch.int32, device=lhs.device)
+    if ids == sorted(ids):
+        return _gmm.gmm(lhs.contiguous(), rhs.contiguous(), sizes)
+    order = torch.tensor(sorted(range(len(ids)), key=ids.__getitem__),
+                         device=lhs.device)
+    tiles = lhs.reshape(-1, bm, K)[order].reshape(M, K)
+    y = _gmm.gmm(tiles, rhs.contiguous(), sizes)
+    out = torch.empty_like(y)
+    out.view(-1, bm, N)[order] = y.view(-1, bm, N)
+    return out
 
 
 def gmm_equal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

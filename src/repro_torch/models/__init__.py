@@ -1,4 +1,4 @@
 from repro_torch.models.model import (  # noqa: F401
-    init_params, forward, loss_fn, init_cache, prefill, decode_step,
-    cache_batch_axes,
+    init_params, param_axes, forward, loss_fn, init_cache,
+    cache_logical_axes, prefill, decode_step, cache_batch_axes,
 )

@@ -21,7 +21,7 @@ import torch
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (
-    Params, apply_mrope, apply_rope, dense_init, rmsnorm, rmsnorm_init,
+    Axes, Params, apply_mrope, apply_rope, dense_init, rmsnorm, rmsnorm_init,
     torch_dtype,
 )
 
@@ -48,6 +48,23 @@ def attention_init(cfg: ModelConfig, gen: torch.Generator,
         p["q_norm"] = rmsnorm_init(cfg.head_dim, dt, device)
         p["k_norm"] = rmsnorm_init(cfg.head_dim, dt, device)
     return p
+
+
+def attention_axes(cfg: ModelConfig) -> Axes:
+    a: Axes = {
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "kv"),
+        "wv": ("embed", "kv"),
+        "wo": ("heads", "embed"),
+    }
+    if cfg.qkv_bias:
+        a["bq"] = ("heads",)
+        a["bk"] = ("kv",)
+        a["bv"] = ("kv",)
+    if cfg.qk_norm:
+        a["q_norm"] = (None,)
+        a["k_norm"] = (None,)
+    return a
 
 
 # ---------------------------------------------------------------------------

@@ -11,12 +11,14 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models.attention import (
-    attention_apply, attention_decode, attention_init, attention_prefill,
+    attention_apply, attention_axes, attention_decode, attention_init,
+    attention_prefill,
 )
 from repro_torch.models.layers import (
-    Params, mlp_apply, mlp_init, rmsnorm, rmsnorm_init, torch_dtype,
+    Axes, Params, mlp_apply, mlp_axes, mlp_init, rmsnorm, rmsnorm_init,
+    torch_dtype,
 )
-from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.moe import moe_apply, moe_axes, moe_init
 
 
 def block_init(cfg: ModelConfig, gen: torch.Generator,
@@ -32,6 +34,16 @@ def block_init(cfg: ModelConfig, gen: torch.Generator,
     else:
         p["mlp"] = mlp_init(cfg, gen, device)
     return p
+
+
+def block_axes(cfg: ModelConfig) -> Axes:
+    a: Axes = {"ln1": ("embed",), "attn": attention_axes(cfg),
+               "ln2": ("embed",)}
+    if cfg.is_moe:
+        a["moe"] = moe_axes(cfg)
+    else:
+        a["mlp"] = mlp_axes(cfg)
+    return a
 
 
 def _ffn(cfg: ModelConfig, p: Params, h: torch.Tensor,

@@ -16,11 +16,12 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models.attention import (
-    _attend, _project_q, _project_qkv, attention_apply, attention_decode,
-    attention_init, attention_prefill,
+    _attend, _project_q, _project_qkv, attention_apply, attention_axes,
+    attention_decode, attention_init, attention_prefill,
 )
 from repro_torch.models.layers import (
-    Params, mlp_apply, mlp_init, rmsnorm, rmsnorm_init, torch_dtype,
+    Axes, Params, mlp_apply, mlp_axes, mlp_init, rmsnorm, rmsnorm_init,
+    torch_dtype,
 )
 
 
@@ -37,6 +38,11 @@ def enc_block_init(cfg: ModelConfig, gen: torch.Generator,
         "ln2": rmsnorm_init(cfg.d_model, dt, device),
         "mlp": mlp_init(cfg, gen, device),
     }
+
+
+def enc_block_axes(cfg: ModelConfig) -> Axes:
+    return {"ln1": ("embed",), "attn": attention_axes(cfg),
+            "ln2": ("embed",), "mlp": mlp_axes(cfg)}
 
 
 def enc_block_apply(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -61,6 +67,14 @@ def dec_block_init(cfg: ModelConfig, gen: torch.Generator,
         "cross_attn": attention_init(cfg, gen, device, cross=True),
         "ln2": rmsnorm_init(cfg.d_model, dt, device),
         "mlp": mlp_init(cfg, gen, device),
+    }
+
+
+def dec_block_axes(cfg: ModelConfig) -> Axes:
+    return {
+        "ln1": ("embed",), "self_attn": attention_axes(cfg),
+        "ln_x": ("embed",), "cross_attn": attention_axes(cfg),
+        "ln2": ("embed",), "mlp": mlp_axes(cfg),
     }
 
 

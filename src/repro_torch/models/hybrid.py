@@ -24,15 +24,16 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models.attention import (
-    attention_apply, attention_decode, attention_init, attention_prefill,
+    attention_apply, attention_axes, attention_decode, attention_init,
+    attention_prefill,
 )
 from repro_torch.models.layers import (
-    Params, mlp_apply, mlp_init, rmsnorm, torch_dtype,
+    Axes, Params, mlp_apply, mlp_axes, mlp_init, rmsnorm, torch_dtype,
 )
 from repro_torch.models.mamba import (
-    mamba_apply, mamba_cache_init, mamba_decode, mamba_init,
+    mamba_apply, mamba_axes, mamba_cache_init, mamba_decode, mamba_init,
 )
-from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.moe import moe_apply, moe_axes, moe_init
 
 
 def _positions(cfg: ModelConfig) -> List[Tuple[str, str]]:
@@ -71,6 +72,21 @@ def superblock_init(cfg: ModelConfig, gen: torch.Generator,
     if n_moe(cfg):
         p["moe"] = [moe_init(cfg, gen, device) for _ in range(n_moe(cfg))]
     return p
+
+
+def superblock_axes(cfg: ModelConfig) -> Axes:
+    """The reference's superblock axes without its ``"sublayer"`` axis:
+    the port keeps those layers as lists, one axes dict each."""
+    a: Axes = {
+        "attn": attention_axes(cfg),
+        "mamba": [mamba_axes(cfg) for _ in range(n_mamba(cfg))],
+        "mlp": [mlp_axes(cfg) for _ in range(cfg.hybrid_period - n_moe(cfg))],
+        "ln_mix": (None, "embed"),
+        "ln_ffn": (None, "embed"),
+    }
+    if n_moe(cfg):
+        a["moe"] = [moe_axes(cfg) for _ in range(n_moe(cfg))]
+    return a
 
 
 def _layers(cfg: ModelConfig, p: Params):

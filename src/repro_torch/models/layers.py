@@ -18,6 +18,8 @@ import torch.nn.functional as F
 from repro_torch.config.base import ModelConfig
 
 Params = Dict[str, Any]
+# logical axis names of each parameter dim (``parallel/sharding.py``)
+Axes = Dict[str, Any]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -140,6 +142,14 @@ def mlp_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device,
     }
 
 
+def mlp_axes(cfg: ModelConfig) -> Axes:
+    return {
+        "wi_gate": ("embed", "mlp"),
+        "wi_up": ("embed", "mlp"),
+        "wo": ("mlp", "embed"),
+    }
+
+
 def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     dt = torch_dtype(cfg.dtype)
     gate = x @ p["wi_gate"].to(dt)
@@ -164,6 +174,15 @@ def embedding_init(cfg: ModelConfig, gen: torch.Generator,
         p["frontend_proj"] = dense_init(
             gen, (cfg.frontend_embed_dim, cfg.d_model), dt, device)
     return p
+
+
+def embedding_axes(cfg: ModelConfig) -> Axes:
+    a: Axes = {"embedding": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        a["unembed"] = ("embed", "vocab")
+    if cfg.frontend_embed_dim:
+        a["frontend_proj"] = (None, "embed")
+    return a
 
 
 def embed_tokens(cfg: ModelConfig, p: Params,

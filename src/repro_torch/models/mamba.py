@@ -30,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (
-    Params, dense_init, rmsnorm, rmsnorm_init, torch_dtype,
+    Axes, Params, dense_init, rmsnorm, rmsnorm_init, torch_dtype,
 )
 
 CHUNK = 256
@@ -68,6 +68,23 @@ def mamba_init(cfg: ModelConfig, gen: torch.Generator,
         "dt_norm": rmsnorm_init(R, dt, device),
         "b_norm": rmsnorm_init(N, dt, device),
         "c_norm": rmsnorm_init(N, dt, device),
+    }
+
+
+def mamba_axes(cfg: ModelConfig) -> Axes:
+    return {
+        "in_proj": ("embed", "inner"),
+        "conv_w": (None, "inner"),
+        "conv_b": ("inner",),
+        "x_proj": ("inner", None),
+        "dt_proj": (None, "inner"),
+        "dt_bias": ("inner",),
+        "A_log": ("inner", None),
+        "D": ("inner",),
+        "out_proj": ("inner", "embed"),
+        "dt_norm": (None,),
+        "b_norm": (None,),
+        "c_norm": (None,),
     }
 
 

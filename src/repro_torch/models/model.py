@@ -81,6 +81,33 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
+def param_axes(cfg: ModelConfig) -> Any:
+    """Logical axes of every parameter, in the tree of ``init_params``:
+    the reference's ``param_axes`` without the stacked ``"layers"`` axis
+    (and, in a hybrid superblock, ``"sublayer"``), since the port keeps
+    those layers as lists."""
+    a: Dict[str, Any] = {
+        "embed": L.embedding_axes(cfg),
+        "final_norm": ("embed",),
+    }
+    if cfg.family == ENCDEC:
+        a["enc_blocks"] = [ED.enc_block_axes(cfg)
+                           for _ in range(cfg.encoder_layers)]
+        a["dec_blocks"] = [ED.dec_block_axes(cfg)
+                           for _ in range(cfg.decoder_layers)]
+        a["enc_norm"] = ("embed",)
+        return a
+    n = cfg.num_layers
+    if cfg.family == HYBRID:
+        block_axes, n = HY.superblock_axes, n // cfg.hybrid_period
+    elif cfg.family == SSM:
+        block_axes = RW.rwkv_axes
+    else:
+        block_axes = B.block_axes
+    a["blocks"] = [block_axes(cfg) for _ in range(n)]
+    return a
+
+
 # ---------------------------------------------------------------------------
 # embeddings / logits
 # ---------------------------------------------------------------------------
@@ -263,18 +290,31 @@ def loss_fn(cfg: ModelConfig, p: Params, batch: Batch,
 # KV-cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
-def cache_batch_axes(cfg: ModelConfig) -> Dict[str, int]:
-    """The batch (slot) axis of each cache entry, as the reference's
-    ``cache_logical_axes`` places ``"batch"``."""
+def cache_logical_axes(cfg: ModelConfig, *, shard_seq: bool = False) -> Any:
+    """Logical axes of the cache entries (the reference's layouts, so the
+    reference's axes); ``shard_seq`` makes the sequence axis shardable."""
+    seq = "kv_seq" if shard_seq else None
+    kv = (None, "batch", seq, "kv_act")
     if cfg.family == HYBRID:
-        axes = {"k": 1, "v": 1, "conv": 2, "ssm": 2}
+        a = {"k": kv, "v": kv,
+             "conv": (None, None, "batch", None, "inner_act"),
+             "ssm": (None, None, "batch", "inner_act", None)}
     elif cfg.family == SSM:
-        axes = {"tshift": 1, "cshift": 1, "wkv": 1}
+        a = {"tshift": (None, "batch", "embed_act"),
+             "cshift": (None, "batch", "embed_act"),
+             "wkv": (None, "batch", "heads_act", None, None)}
     elif cfg.family == ENCDEC:
-        axes = {"k": 1, "v": 1, "xk": 1, "xv": 1}
+        a = {"k": kv, "v": kv, "xk": kv, "xv": kv}
     else:
-        axes = {"k": 1, "v": 1}
-    return dict(axes, index=0)
+        a = {"k": kv, "v": kv}
+    a["index"] = ("batch",)
+    return a
+
+
+def cache_batch_axes(cfg: ModelConfig) -> Dict[str, int]:
+    """The batch (slot) axis of each cache entry: where
+    ``cache_logical_axes`` places ``"batch"``."""
+    return {k: ax.index("batch") for k, ax in cache_logical_axes(cfg).items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import Params, dense_init, torch_dtype
+from repro_torch.models.layers import Axes, Params, dense_init, torch_dtype
 
 AUX_LOSS_COEF = 0.01
 
@@ -42,6 +42,15 @@ def moe_init(cfg: ModelConfig, gen: torch.Generator,
         "wi_gate": dense_init(gen, (E, d, f), dt, device, in_axis=1),
         "wi_up": dense_init(gen, (E, d, f), dt, device, in_axis=1),
         "wo": dense_init(gen, (E, f, d), dt, device, in_axis=1),
+    }
+
+
+def moe_axes(cfg: ModelConfig) -> Axes:
+    return {
+        "router": ("embed", None),
+        "wi_gate": ("experts", "embed", "expert_mlp"),
+        "wi_up": ("experts", "embed", "expert_mlp"),
+        "wo": ("experts", "expert_mlp", "embed"),
     }
 
 

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (
-    Params, dense_init, rmsnorm, rmsnorm_init, torch_dtype,
+    Axes, Params, dense_init, rmsnorm, rmsnorm_init, torch_dtype,
 )
 
 CHUNK = 64
@@ -77,6 +77,24 @@ def rwkv_init(cfg: ModelConfig, gen: torch.Generator,
         "cw_k": dense(d, cfg.d_ff),
         "cw_v": dense(cfg.d_ff, d),
         "cw_r": dense(d, d),
+    }
+
+
+def rwkv_axes(cfg: ModelConfig) -> Axes:
+    return {
+        "ln1": ("embed",), "ln2": ("embed",),
+        "mu_base": ("embed",), "mu": (None, "embed"),
+        "mix_w1": ("embed", None), "mix_w2": (None, None, "embed"),
+        "decay_base": ("embed",),
+        "decay_w1": ("embed", None), "decay_w2": (None, "embed"),
+        "u": ("embed",),
+        "wr": ("embed", "heads"), "wk": ("embed", "heads"),
+        "wv": ("embed", "heads"), "wg": ("embed", "heads"),
+        "wo": ("heads", "embed"),
+        "ln_x": ("embed",),
+        "cmu_k": ("embed",), "cmu_r": ("embed",),
+        "cw_k": ("embed", "mlp"), "cw_v": ("mlp", "embed"),
+        "cw_r": ("embed", "embed2"),
     }
 
 

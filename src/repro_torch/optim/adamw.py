@@ -124,6 +124,22 @@ def init_state(params: Params, cfg: OptimConfig) -> Dict[str, Any]:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def state_axes(param_axes_tree: Any, cfg: OptimConfig) -> Dict[str, Any]:
+    """Logical axes of ``init_state``'s tree from the params' axes
+    (``models.param_axes``): the moments follow their leaf's axes; an int8
+    moment's scales ``s`` [..., nb] keep all but the last dim's, whose
+    blocks are not sharded."""
+    if cfg.state_dtype == "int8":
+        def mk(ax):
+            return {"q": ax, "s": ax[:-1] + (None,) if ax else (None,)}
+        m = tree_map(mk, param_axes_tree)
+        v = tree_map(mk, param_axes_tree)
+    else:
+        m = param_axes_tree
+        v = param_axes_tree
+    return {"m": m, "v": v, "count": ()}
+
+
 # ---------------------------------------------------------------------------
 # update
 # ---------------------------------------------------------------------------
