@@ -34,7 +34,8 @@ Phases, each of which raises on failure (exit code != 0):
                one tick with a 2048-token prefill; then the launcher
                ``serve --tiny`` for qwen3-8b, dbrx-132b and jamba (head dim
                16: the flash kernel's mma.sync route);
-  4b. checkpoint - full-width, full-depth qwen3-4b (bf16, seed 0) through
+  4b. checkpoint - full-width qwen3-4b at 8 of its 36 layers (bf16, seed
+               0; the depth cut keeps the phase's time down) through
                the launcher's fabric path (``launch/serve.py``
                ``restore_over_fabric``): seeded params on the card, saved
                through ``CheckpointManager`` into the home store of a
@@ -43,7 +44,7 @@ Phases, each of which raises on failure (exit code != 0):
                original; the first 4 prompts of the qwen3-8b traffic
                served from the restored and from the original params give
                the same greedy tokens, the restored run's prefill on flash
-               (36 ``wgmma`` launches a request); then qwen3-4b at 2
+               (8 ``wgmma`` launches a request); then qwen3-4b at 2
                layers (f32 params, int8 moments) after one train step:
                saved, stepped again in place, restored, and the saved
                values back bit for bit, its save, sync and restore under
@@ -170,6 +171,30 @@ Phases, each of which raises on failure (exit code != 0):
                factor 32 against ``ep_moe_plain`` and ``moe_apply`` (1e-5
                scaled); the gmm kernel at a rank's received rows, timed
                beside torch.bmm; a failed or hung rank fails the phase;
+ 20. sharded - the dense and MoE families on a (data 2, model 2)
+               DeviceMesh (``parallel/``, DTensor), 4 ranks spawned as in
+               phase 19 (one card: all on card 0, gloo staging the
+               collectives through the host; four cards: nccl, one a
+               rank), every sub-phase at full width and 2 layers, the
+               params seeded in the parent and shared; first flash and
+               gmm at the local shapes the ranks give them, against their
+               plain versions and timed; then, each held to the same run
+               on one device on the card: (a) qwen3-4b ``fsdp`` train
+               step, f32, 2 x 512 tokens, fp32 moments: the loss (1e-5)
+               and every moment leaf after one step (1e-4 of its scale),
+               the step's all-gathers and reduce-scatters (counts from
+               ``CommDebugMode``, bytes from ``launch/op_analysis.py``),
+               ms a step and peak GB a rank; (b) qwen3-8b ``baseline``
+               prefill of 4 x 512-token prompts and 16 decode ticks with
+               flash on each rank's 16 q / 4 kv heads, bf16 (2 ``wgmma``
+               launches a rank; relative RMS 1e-2, fed the single-device
+               tokens) and f32 (2 ``f32`` launches; 1e-4 scaled, its own
+               greedy tokens equal), prefill ms and ms a tick; (c)
+               qwen3-moe ``fsdp`` loss with flash and gmm on each rank's
+               64 experts, bf16 (6 gmm and 2 flash ``wgmma`` launches a
+               rank; 1e-2) and f32 (6 ``mma_sync``; 1e-5 of the plain
+               loss, every layer's kept mask equal, any difference
+               printed); a failed or hung rank fails the phase;
 (every serving run checks each admission's splice of every cache entry)
 then prints a JSON line of kernel numbers and, last, the JSON result line.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -210,6 +235,7 @@ TRAIN_CHECK_LAYERS = 2     # card vs CPU: ~1 B params in f32
 TRAINER_STEPS = 3          # timed Trainer steps at full depth
 TRAINER_SHARDS = 4         # corpus shards, as launch/train.py writes
 CKPT_PROMPTS = 4           # the qwen3-8b traffic's first 4 prompts
+CKPT_LAYERS = 8            # of qwen3-4b's 36: 3.2 GB of bf16 weights
 ENCDEC_ARCH = "seamless-m4t-medium"
 ENCDEC_BATCH, ENCDEC_SEQ = 4, 1024   # 1024 frames and 1024 text tokens each
 ENCDEC_PROMPT = 64         # text tokens a prompt, after the 1024 frames
@@ -238,6 +264,16 @@ EP_F32_WIDTH = (256, 512)  # its d_model and d_ff_expert
 EP_F32_BATCH, EP_F32_SEQ = 4, 128
 EP_F32_CF = 32.0           # capacity factor: no assignment dropped
 EP_LIMIT = 300             # seconds the ranks may take, spawn to exit
+SHARD_RANKS = 4            # phase 20: a (data 2, model 2) mesh
+SHARD_MESH = (2, 2)
+SHARD_LAYERS = 2           # every sub-phase at full width, 2 layers
+SHARD_TRAIN_ARCH = "qwen3-4b"
+SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ = 2, 512
+SHARD_SERVE_ARCH = "qwen3-8b"
+SHARD_PROMPTS, SHARD_PROMPT_LEN, SHARD_TICKS = 4, 512, 16
+SHARD_MOE_ARCH = "qwen3-moe-30b-a3b"
+SHARD_MOE_BATCH, SHARD_MOE_SEQ = 2, 512
+SHARD_LIMIT = 400          # seconds phase 20's ranks may take
 EP_PG_TIMEOUT = 120        # seconds a collective may wait for a peer
 
 
@@ -927,8 +963,8 @@ def fabric_rates(info) -> dict:
 
 
 def checkpoint(torch, card: str):
-    """qwen3-4b (full width and depth, bf16) published and restored over
-    the fabric by the launcher's path, then served from the restored
+    """qwen3-4b (full width, CKPT_LAYERS deep, bf16) published and restored
+    over the fabric by the launcher's path, then served from the restored
     params; then a 2-layer train state saved, stepped over and restored.
     Every fabric file lives in a temp dir, removed when the phase ends."""
     import shutil
@@ -947,7 +983,8 @@ def checkpoint(torch, card: str):
           f"{disk.total / 1e9:.1f} GB", flush=True)
     try:
         cfg = get_config(TRAIN_ARCH).replace(param_dtype="bfloat16",
-                                             attention_impl="pallas")
+                                             attention_impl="pallas",
+                                             num_layers=CKPT_LAYERS)
         params = seeded_params(torch, cfg)
         restored, info = restore_over_fabric(cfg, params,
                                              os.path.join(root, "serve"))
@@ -3001,6 +3038,494 @@ def ep_moe_phase(torch, card: str) -> dict:
     return res
 
 
+def shard_kernel_cases(torch, fa, gm) -> dict:
+    """Flash and gmm at the local shapes phase 20's ranks give them: flash
+    on one rank's prefill block of qwen3-8b (2 prompts of 512 tokens, 16 q
+    and 4 kv heads, D 128, bf16, causal; the ``wgmma`` route) and gmm on
+    one rank's 64 of qwen3-moe's 128 experts, each with the C + 1 = 81
+    slots of a 2 x 512-token chunk (K 2048 -> N 768 and back, bf16).  Each
+    against its plain version in f32 (relative RMS, ``RMS_TOL``), timed
+    beside the plain version, one PyTorch call (SDPA; ``torch.bmm`` over
+    the equal groups) and the bound of this work."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.moe import _capacity
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    B, S, Hq, Hkv, D = SHARD_PROMPTS // SHARD_MESH[0], SHARD_PROMPT_LEN, \
+        32 // SHARD_MESH[1], 8 // SHARD_MESH[1], 128
+    q = torch.randn(B, S, Hq, D, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").bfloat16()
+    route = fa.route(q.dtype, D)
+    n0 = fa.flash_attention.route_launches[route]
+    out = kops.flash_attention(q, k, v, causal=True)
+    if route != "wgmma" or fa.flash_attention.route_launches[route] != n0 + 1:
+        raise AssertionError(f"flash at the rank's shape took {route}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    want32 = fa.flash_attention_plain(qt.float(), kt.float(), vt.float(),
+                                      causal=True).transpose(1, 2)
+    ferr = rms_rel_err(torch, out, want32)
+    if ferr > RMS_TOL["bfloat16"] or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"flash at the rank's shape: rms {ferr}")
+    bound, by = attention_bound(B, Hq, Hkv, S, S, D, True, 0, "bfloat16")
+    flash = dict(case="flash rank prefill", B=B, Hq=Hq, Hkv=Hkv, S=S, D=D,
+                 route=route, rms_rel_err_vs_f32=ferr,
+                 max_abs_err=float((out.float() - want32).abs().max()),
+                 ms=cuda_ms(torch, lambda: kops.flash_attention(
+                     q, k, v, causal=True), iters=20),
+                 plain_ms=cuda_ms(torch, lambda: fa.flash_attention_plain(
+                     qt, kt, vt, causal=True), iters=3, warmup=1),
+                 library_ms=cuda_ms(
+                     torch, lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, is_causal=True, enable_gqa=True),
+                     iters=20),
+                 bound_ms=bound, bound_by=by)
+    print("kernel case flash " + json.dumps(flash), flush=True)
+    m = get_config(SHARD_MOE_ARCH).moe
+    G = m.num_experts // SHARD_MESH[1]
+    rows = _capacity(m, SHARD_MOE_BATCH * SHARD_MOE_SEQ) + 1
+    cases = []
+    for K, N, what in ((2048, m.d_ff_expert, "gate/up"),
+                       (m.d_ff_expert, 2048, "down")):
+        x = torch.randn(G, rows, K, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(G, K, N, generator=gen, device="cuda")
+             * K ** -0.5).bfloat16()
+        r0 = gm.route(x.dtype, K, N, G)
+        n0 = gm.gmm.route_launches[r0]
+        y = kops.gmm_equal(x, w)
+        if r0 != "wgmma" or gm.gmm.route_launches[r0] != n0 + 1:
+            raise AssertionError(f"gmm {what} at the rank's experts took {r0}")
+        want = torch.bmm(x.float(), w.float())
+        gerr = rms_rel_err(torch, y, want)
+        if gerr > RMS_TOL["bfloat16"] or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"gmm {what} at the rank's experts: {gerr}")
+        sizes = [rows] * G
+        bound, by, _ = gmm_bound(sizes, G * rows, K, N, "bfloat16")
+        flat, gs = x.reshape(G * rows, K), torch.full(
+            (G,), rows, dtype=torch.int32, device="cuda")
+        c = dict(case=f"gmm rank experts {what}", G=G, rows=rows, K=K, N=N,
+                 route=r0, rms_rel_err_vs_f32=gerr,
+                 max_abs_err=float((y.float() - want).abs().max()),
+                 ms=cuda_ms(torch, lambda: kops.gmm_equal(x, w), iters=20),
+                 plain_ms=cuda_ms(torch, lambda: gm.gmm_plain(flat, w, gs),
+                                  iters=3, warmup=1),
+                 library_ms=cuda_ms(torch, lambda: torch.bmm(x, w), iters=20),
+                 bound_ms=bound, bound_by=by)
+        print("kernel case gmm " + json.dumps(c), flush=True)
+        cases.append(c)
+    return {"flash": flash, "gmm": cases}
+
+
+def _recording_routes(moe_mod, store: list):
+    """Wrap ``moe._route`` so each call's kept mask and top-k gap (the
+    probability between the k-th and the k+1-th expert) land in
+    ``store``; returns the real function, to put back."""
+    import torch
+    real = moe_mod._route
+
+    def recording(cfg_, router, xf, C):
+        out = real(cfg_, router, xf, C)
+        probs = torch.softmax(xf.float() @ router, dim=-1)
+        top = torch.topk(probs, cfg_.moe.experts_per_token + 1, dim=-1)[0]
+        store.append(dict(keep=out[3].cpu(), gap=(top[:, -2] - top[:, -1])
+                          .cpu()))
+        return out
+
+    moe_mod._route = recording
+    return real
+
+
+def shard_references(torch) -> dict:
+    """Phase 20's single-device runs on the card, on the seeded params the
+    ranks get: (a) qwen3-4b's loss and one train step's moments; (b)
+    qwen3-8b's prefill and SHARD_TICKS greedy decode steps, bf16 and f32;
+    (c) qwen3-moe's plain loss in f32 (and bf16) with each layer's kept
+    mask."""
+    from repro_torch.config import RunConfig, ShapeConfig, ShardingConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import loss_fn, prefill
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import make_opt_state, make_train_step
+    ref = {}
+    # (a)
+    cfg = get_config(SHARD_TRAIN_ARCH).replace(
+        num_layers=SHARD_LAYERS, dtype="float32", param_dtype="float32",
+        attention_impl="xla")
+    params = seeded_params(torch, cfg)
+    batch = scoring_batch(torch, cfg, SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ)
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "smoke", "train", SHARD_TRAIN_SEQ, SHARD_TRAIN_BATCH),
+        sharding=ShardingConfig(policy="fsdp"), seed=SEED)
+    with torch.no_grad():
+        ref["a_loss"] = float(loss_fn(cfg, params, batch)[0])
+    ref["a_params"] = {k: v for k, v in params.items()}
+    ref["a_batch"] = batch
+    pcopy = [t.clone() for t in tree_leaves(params)]
+    opt = make_opt_state(run, params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    make_train_step(run)(params, opt, batch)
+    torch.cuda.synchronize()
+    ref["a_step_ms"] = (time.perf_counter() - t0) * 1e3
+    for t, c in zip(tree_leaves(params), pcopy):
+        t.copy_(c)                      # lr_at(0) is 0; keep them exact
+    del pcopy
+    ref["a_m"], ref["a_v"] = tree_leaves(opt["m"]), tree_leaves(opt["v"])
+    ref["a_run"], ref["a_cfg"] = run, cfg
+    # (b) and (c): f32 params, and their bf16 cast for the bf16 runs (the
+    # ranks cast their blocks the same way), so the card holds one copy
+    from repro_torch.optim.adamw import tree_map
+    bf16 = lambda tree: tree_map(lambda t: t.to(torch.bfloat16), tree)
+    cfg32 = get_config(SHARD_SERVE_ARCH).replace(
+        num_layers=SHARD_LAYERS, dtype="float32", param_dtype="float32",
+        attention_impl="pallas")
+    p32 = seeded_params(torch, cfg32)
+    b = scoring_batch(torch, cfg32, SHARD_PROMPTS, SHARD_PROMPT_LEN)
+    prompt = {"tokens": b["tokens"], "positions": b["positions"]}
+    for dt in ("bfloat16", "float32"):
+        cfg = cfg32.replace(dtype=dt, param_dtype=dt)
+        params = bf16(p32) if dt == "bfloat16" else p32
+        with torch.inference_mode():
+            lg, cache = prefill(cfg, params, prompt,
+                                SHARD_PROMPT_LEN + SHARD_TICKS + 1)
+            toks, steps, _, _ = decode_ticks(torch, cfg, params, lg, cache,
+                                             SHARD_TICKS)
+        ref[f"b_{dt}"] = dict(cfg=cfg, prompt=prompt,
+                              prefill=lg[:, -1].float().clone(),
+                              steps=torch.stack(steps), tokens=toks)
+        del cache, params
+    ref["b_params"] = p32
+    cfg32 = get_config(SHARD_MOE_ARCH).replace(
+        num_layers=SHARD_LAYERS, dtype="float32", param_dtype="float32")
+    p32 = seeded_params(torch, cfg32)
+    batch = scoring_batch(torch, cfg32, SHARD_MOE_BATCH, SHARD_MOE_SEQ)
+    for dt in ("bfloat16", "float32"):
+        cfg = cfg32.replace(dtype=dt, param_dtype=dt)
+        params = bf16(p32) if dt == "bfloat16" else p32
+        routes = []
+        real = _recording_routes(moe_mod, routes)
+        try:
+            with torch.no_grad():
+                loss = float(loss_fn(cfg, params, batch)[0])
+        finally:
+            moe_mod._route = real
+        ref[f"c_{dt}"] = dict(cfg=cfg, batch=batch, loss=loss,
+                              keep=[r["keep"] for r in routes],
+                              gap=[r["gap"] for r in routes])
+        del params
+    ref["c_params"] = p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return ref
+
+
+def sharded_rank(rank: int, job: dict, results) -> None:
+    """One of phase 20's ranks, in its own process: joins the group, then
+    ``sharded_rank_work``; its result (or its traceback) goes to
+    ``results``."""
+    import datetime
+    import traceback
+    import torch
+    import torch.distributed as dist
+    try:
+        dev = torch.device("cuda", rank if job["backend"] == "nccl" else 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(
+            job["backend"], store=dist.FileStore(job["store"], SHARD_RANKS),
+            rank=rank, world_size=SHARD_RANKS,
+            timeout=datetime.timedelta(seconds=EP_PG_TIMEOUT))
+        if job["backend"] == "gloo":
+            from repro_torch.parallel.collectives import gloo_cuda_all_gather
+            gloo_cuda_all_gather()
+        try:
+            res = sharded_rank_work(torch, rank, dev, job)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, res))
+    except BaseException:
+        results.put((rank, {"error": traceback.format_exc()}))
+        raise SystemExit(1)
+
+
+def _block_err(d, full) -> float:
+    """max |d's block - the same block of ``full``| over max |full|: a
+    rank's share of a leaf's scaled error, its block against the
+    single-device tensor's slice (views of the shared tensor, no gather)."""
+    from torch.distributed.tensor import distribute_tensor
+    ref = distribute_tensor(full, d.device_mesh, d.placements,
+                            src_data_rank=None).to_local()
+    scale = max(float(full.max()), -float(full.min()), 1e-30)
+    return float((d.to_local().float() - ref.float()).abs().max()) / scale
+
+
+def _scaled(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def sharded_rank_work(torch, rank: int, dev, job: dict) -> dict:
+    """Phase 20's sub-phases (a)-(c) on this rank; see the module
+    docstring.  Each check's error is measured here against the parent's
+    single-device result (shared tensors); the parent holds them to the
+    tolerances."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.config import ShardingConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.models import decode_step, loss_fn, param_axes, prefill
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.parallel.context import distribute, sharding_ctx
+    from repro_torch.parallel.sharding import (
+        batch_shardings, distribute_tree, make_ctx, tree_shardings,
+    )
+    from repro_torch.train import make_opt_state, make_train_step
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def reset():
+        fa.flash_attention.route_launches = dict.fromkeys(fa.ROUTES, 0)
+        gm.gmm.route_launches = dict.fromkeys(gm.ROUTES, 0)
+
+    def launches():
+        return dict(flash=dict(fa.flash_attention.route_launches),
+                    gmm=dict(gm.gmm.route_launches))
+
+    mesh = make_test_mesh(*SHARD_MESH, device_type="cuda")
+    res = dict(rank=rank, coord=mesh.get_coordinate(), device=str(dev))
+
+    # (a) qwen3-4b train step, fsdp
+    run, cfg = job["a_run"], job["a_cfg"]
+    ctx = make_ctx(mesh, run.sharding)
+    p_axes = param_axes(cfg)
+    pd = distribute_tree(job["a_params"], tree_shardings(ctx, p_axes))
+    od = make_opt_state(run, pd)      # laid out by state_axes, local
+    bd = distribute_tree(job["a_batch"], batch_shardings(ctx, job["a_batch"]))
+    step = make_train_step(run)
+    torch.cuda.reset_peak_memory_stats(dev)
+    comm, oa = CommDebugMode(), OpAnalysis()
+    with sharding_ctx(ctx):
+        with torch.no_grad():
+            loss = float(loss_fn(cfg, pd, bd)[0].full_tensor())
+        with comm, oa:
+            _, first_ms = sync_ms(lambda: step(pd, od, bd))
+        m_err = max(_block_err(g, w) for g, w in zip(
+            tree_leaves(od["m"]), job["a_m"]))
+        v_err = max(_block_err(g, w) for g, w in zip(
+            tree_leaves(od["v"]), job["a_v"]))
+        _, step_ms = sync_ms(lambda: step(pd, od, bd))
+    counts = {str(k).split(".")[-1]: v
+              for k, v in comm.get_comm_counts().items()}
+    rec = oa.result()
+    res["a"] = dict(loss=loss, loss_err=abs(loss - job["a_loss"])
+                    / abs(job["a_loss"]), m_err=m_err, v_err=v_err,
+                    first_step_ms=first_ms, step_ms=step_ms,
+                    comm_counts=counts,
+                    coll_bytes={k: rec[f"coll_{k}"] for k in (
+                        "all-gather", "reduce-scatter", "all-reduce")},
+                    coll_count=rec["collective_count"],
+                    flops=rec["flops"],
+                    peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del pd, od, bd, step, oa
+    torch.cuda.empty_cache()
+
+    # (b) qwen3-8b prefill + decode, baseline, bf16 then f32
+    for dt in ("bfloat16", "float32"):
+        ref = job[f"b_{dt}"]
+        cfg = ref["cfg"]
+        ctx = make_ctx(mesh, ShardingConfig(policy="baseline"), decode=True)
+        pd = tree_map(lambda t: t.to(getattr(torch, dt)), distribute_tree(
+            job["b_params"], tree_shardings(ctx, param_axes(cfg))))
+        bd = distribute_tree(ref["prompt"],
+                             batch_shardings(ctx, ref["prompt"]))
+        feed = ref["tokens"]
+        with sharding_ctx(ctx), torch.no_grad():
+            reset()
+            (lg, cache), pre_ms = sync_ms(lambda: prefill(
+                cfg, pd, bd, SHARD_PROMPT_LEN + SHARD_TICKS + 1))
+            pre_launch = launches()
+            first = lg.full_tensor()[:, -1].float()
+            toks = [first.argmax(-1, keepdim=True)]
+            errs, tick_ms = [], []
+            for i in range(SHARD_TICKS):
+                # bf16 is fed the single-device run's tokens, so a rounding
+                # flip cannot fork the sequences; f32 feeds its own
+                tok = feed[:, i:i + 1] if dt == "bfloat16" else toks[-1]
+                (lg, cache), ms = sync_ms(lambda: decode_step(
+                    cfg, pd, distribute(tok.to(torch.int32), "batch", None),
+                    cache))
+                tick_ms.append(ms)
+                full = lg.full_tensor()[:, 0].float()
+                want = ref["steps"][i]
+                errs.append(_scaled(full, want) if dt == "float32"
+                            else float(torch.linalg.vector_norm(full - want)
+                                       / torch.linalg.vector_norm(want)))
+                toks.append(full.argmax(-1, keepdim=True))
+        pre_err = (_scaled(first, ref["prefill"]) if dt == "float32" else
+                   float(torch.linalg.vector_norm(first - ref["prefill"])
+                         / torch.linalg.vector_norm(ref["prefill"])))
+        res[f"b_{dt}"] = dict(
+            prefill_ms=pre_ms, decode_ms=tick_ms, launches=pre_launch,
+            prefill_err=pre_err, step_errs=errs,
+            tokens_equal=bool(torch.equal(torch.cat(toks, 1).cpu(),
+                                          ref["tokens"].cpu())))
+        del pd, bd, cache
+        torch.cuda.empty_cache()
+
+    # (c) qwen3-moe loss, fsdp, flash and gmm on local heads and experts
+    for dt in ("bfloat16", "float32"):
+        ref = job[f"c_{dt}"]
+        cfg = ref["cfg"].replace(attention_impl="pallas", scan_impl="pallas")
+        ctx = make_ctx(mesh, ShardingConfig(policy="fsdp"))
+        pd = tree_map(lambda t: t.to(getattr(torch, dt)), distribute_tree(
+            job["c_params"], tree_shardings(ctx, param_axes(cfg))))
+        bd = distribute_tree(ref["batch"], batch_shardings(ctx, ref["batch"]))
+        routes = []
+        real = _recording_routes(moe_mod, routes)
+        try:
+            with sharding_ctx(ctx), torch.no_grad():
+                reset()
+                loss_t, ms = sync_ms(lambda: loss_fn(cfg, pd, bd)[0])
+                loss = float(loss_t.full_tensor())
+                got = launches()
+        finally:
+            moe_mod._route = real
+        keep_equal = all(torch.equal(g["keep"], w)
+                         for g, w in zip(routes, ref["keep"]))
+        near = []
+        for layer, (g, w, gap) in enumerate(zip(routes, ref["keep"],
+                                                ref["gap"])):
+            for tok in (g["keep"] != w).nonzero()[:10].flatten().tolist():
+                near.append(dict(layer=layer, assignment=tok))
+        res[f"c_{dt}"] = dict(loss=loss, loss_err=abs(loss - ref["loss"])
+                              / abs(ref["loss"]), loss_ms=ms, launches=got,
+                              keep_equal=keep_equal, keep_differences=near,
+                              min_gap=min(float(g.min()) for g in ref["gap"]))
+        del pd, bd
+        torch.cuda.empty_cache()
+    res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return res
+
+
+def run_shard_ranks(torch, job: dict) -> list:
+    """Spawn the SHARD_RANKS ranks on ``job``; each rank's result, or raise
+    if a rank fails or is still running after SHARD_LIMIT seconds (then it
+    is killed)."""
+    import queue
+    import torch.multiprocessing as tmp
+    ctx = tmp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=sharded_rank, args=(r, job, results))
+             for r in range(SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARD_LIMIT
+    got = {}
+    while len(got) < SHARD_RANKS and time.monotonic() < deadline:
+        try:
+            rank, res = results.get(timeout=5.0)
+        except queue.Empty:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break         # a rank died before it could report
+            continue
+        got[rank] = res
+        if "error" in res:
+            break
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for r in hung:
+        procs[r].kill()
+        procs[r].join(10)
+    errors = {r: res["error"] for r, res in got.items() if "error" in res}
+    if hung or errors or len(got) < SHARD_RANKS or \
+            any(p.exitcode != 0 for p in procs):
+        raise AssertionError(
+            f"sharded ranks: hung {hung}, exit codes "
+            f"{[p.exitcode for p in procs]}, results from {sorted(got)}\n"
+            + "\n".join(f"--- rank {r} ---\n{e}" for r, e in errors.items()))
+    return [got[r] for r in range(SHARD_RANKS)]
+
+
+def sharded_phase(torch, card: str) -> dict:
+    """Phase 20: the dense and MoE families sharded on a (data 2, model 2)
+    DeviceMesh, each sub-phase held to the same run on one device; see the
+    module docstring."""
+    import tempfile
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gmm as gm
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= SHARD_RANKS else "gloo"
+    print(f"sharded: backend {backend} world {SHARD_RANKS} cards {cards} "
+          f"(one card: {SHARD_RANKS} ranks share card 0 and gloo stages "
+          f"the collectives through the host; four cards: nccl, one a "
+          f"rank); mesh (data, model) = {SHARD_MESH}", flush=True)
+    t0 = time.perf_counter()
+    kcases = shard_kernel_cases(torch, fa, gm)
+    ref = shard_references(torch)
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="shard_store_") as tmp:
+        job = dict(ref, backend=backend, store=os.path.join(tmp, "store"))
+        ranks = run_shard_ranks(torch, job)
+    ranks_s = time.perf_counter() - t0
+    del job, ref
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    L = SHARD_LAYERS
+    for r in ranks:
+        a = r["a"]
+        if a["loss_err"] > 1e-5 or a["m_err"] > 1e-4 or a["v_err"] > 1e-4:
+            raise AssertionError(f"rank {r['rank']} (a) train step: loss "
+                                 f"{a['loss_err']}, moments {a['m_err']} "
+                                 f"{a['v_err']}")
+        if not a["comm_counts"] or a["coll_bytes"]["reduce-scatter"] <= 0:
+            raise AssertionError(f"rank {r['rank']} (a): no reduce-scatter "
+                                 f"of the fsdp grads: {a}")
+        b16, b32 = r["b_bfloat16"], r["b_float32"]
+        if b16["launches"]["flash"]["wgmma"] != L or \
+                b32["launches"]["flash"]["f32"] != L:
+            raise AssertionError(f"rank {r['rank']} (b) flash launches "
+                                 f"{b16['launches']} {b32['launches']}")
+        if max([b32["prefill_err"]] + b32["step_errs"]) > 1e-4 or \
+                not b32["tokens_equal"]:
+            raise AssertionError(f"rank {r['rank']} (b) f32: {b32}")
+        if max([b16["prefill_err"]] + b16["step_errs"]) > RMS_TOL["bfloat16"]:
+            raise AssertionError(f"rank {r['rank']} (b) bf16: {b16}")
+        c16, c32 = r["c_bfloat16"], r["c_float32"]
+        for d in c16["keep_differences"] + c32["keep_differences"]:
+            print("routing difference " + json.dumps(dict(d, rank=r["rank"])),
+                  flush=True)
+        if c16["launches"]["gmm"]["wgmma"] != 3 * L or \
+                c16["launches"]["flash"]["wgmma"] != L or \
+                c32["launches"]["gmm"]["mma_sync"] != 3 * L:
+            raise AssertionError(f"rank {r['rank']} (c) launches "
+                                 f"{c16['launches']} {c32['launches']}")
+        if c32["loss_err"] > 1e-5 or not c32["keep_equal"] or \
+                c16["loss_err"] > RMS_TOL["bfloat16"]:
+            raise AssertionError(f"rank {r['rank']} (c): f32 {c32}, bf16 "
+                                 f"{c16['loss_err']}")
+    res = dict(card=card, backend=backend, world=SHARD_RANKS, cards=cards,
+               mesh=SHARD_MESH, layers=L, references_s=ref_s,
+               ranks_s=ranks_s, kernel_cases=kcases,
+               ranks=[{k: v for k, v in r.items()} for r in ranks])
+    print("sharded " + json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3167,7 +3692,12 @@ def main() -> int:
     phase(f"ep {EP_ARCH}")
     epres = ep_moe_phase(torch, card)
 
-    # 20. kernel line: each kernel at its main path's largest shape
+    # 20. the dense and MoE families sharded on a (data 2, model 2) mesh:
+    # a train step, prefill and decode, and the MoE loss
+    phase("sharded")
+    shres = sharded_phase(torch, card)
+
+    # 21. kernel line: each kernel at its main path's largest shape
     phase("done")
     big = next(c for c in cases if c["Sq"] == 2048)
     if big["route"] != "wgmma" or big["prior_ms"] is None:
@@ -3206,6 +3736,9 @@ def main() -> int:
         "bound_by": big["bound_by"],
         "library_ms": big["library_ms"],
         "library_causal_ms": big["library_causal_ms"],
+        "sharded_prefill_launches_per_rank": [
+            r["b_bfloat16"]["launches"]["flash"] for r in shres["ranks"]],
+        "sharded_case": shres["kernel_cases"]["flash"],
     }, {
         "name": "rwkv6_scan",
         "route": "cuda",
@@ -3255,9 +3788,12 @@ def main() -> int:
         "library_ms": gbig["library_ms"],
         "ep_launches_per_rank": epres["gmm_launches"],
         "ep_cases": epres["gmm_cases"],
+        "sharded_loss_launches_per_rank": [
+            r["c_bfloat16"]["launches"]["gmm"] for r in shres["ranks"]],
+        "sharded_cases": shres["kernel_cases"]["gmm"],
     }]}), flush=True)
 
-    # 21. result
+    # 22. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

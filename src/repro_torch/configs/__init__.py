@@ -3,14 +3,17 @@
 
 Each module defines ``CONFIG`` with the reference's values;
 ``get_config(arch)`` resolves by id and ``get_tiny_config(arch)`` returns
-the reduced smoke-test sibling.
+the reduced smoke-test sibling; ``cells(arch)`` names the shape cells
+(``config.SHAPES``) that are runnable for it, as the reference's do.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
-from repro_torch.config import ModelConfig, reduce_config
+from repro_torch.config import (
+    SHAPES, ModelConfig, ShapeConfig, reduce_config,
+)
 
 _MODULES: Dict[str, str] = {
     "qwen2.5-32b": "qwen2_5_32b",
@@ -37,3 +40,24 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_tiny_config(arch: str) -> ModelConfig:
     return reduce_config(get_config(arch))
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def cells(arch: str) -> List[str]:
+    """The shape cells that are *runnable* for this arch (assignment rules).
+
+    - ``long_500k`` needs sub-quadratic attention: only SSM/hybrid archs.
+    - all assigned archs have a decoder, so decode_32k runs everywhere.
+    """
+    cfg = get_config(arch)
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        names.append("long_500k")
+    return names
+
+
+def skipped_cells(arch: str) -> List[str]:
+    return [s for s in SHAPES if s not in cells(arch)]

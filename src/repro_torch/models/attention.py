@@ -10,20 +10,30 @@ Decode attention is plain PyTorch, as in the reference.  Cross-attention
 (the enc-dec decoder's) takes its keys and values from ``kv_x`` at
 ``kv_positions``; VLM configs rotate with M-RoPE, positions [3, B, S].
 
-Weights are stored with flattened head dims ([d_model, H*Dh]).
+Weights are stored with flattened head dims ([d_model, H*Dh]).  Under a
+mesh context (``parallel/context.py``) on DTensors, q, k and v are laid
+out as the reference's three ``shard`` calls lay them (batch on the data
+axes, heads on ``model``) and the attention itself, flash or the chunked
+path, runs on each rank's own batch rows and heads (``_attend_sharded``);
+decode writes and reads each rank's block of the cache the same way
+(``_decode_sharded``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (
     Axes, Params, apply_mrope, apply_rope, dense_init, rmsnorm, rmsnorm_init,
-    torch_dtype,
+    matmul, torch_dtype, use,
 )
+from repro_torch.parallel.context import layout, shard
 
 ATTN_CHUNK = 2048  # q-block size for the chunked plain path
 NEG_INF = -1e30
@@ -81,15 +91,46 @@ def _rotate(cfg: ModelConfig, t: torch.Tensor,
     return apply_rope(t, positions, cfg.rope_theta)
 
 
+def _split_heads(t: torch.Tensor, H: int, Dh: int) -> torch.Tensor:
+    """[B,S,H*Dh] -> [B,S,H,Dh].  On a mesh whose shards of the last dim
+    would cut a head (kv_dim 1024 on a 16-way axis: half a head a rank),
+    that dim is gathered first, as DTensor cannot split such a shard."""
+    B, S = t.shape[:2]
+    if not isinstance(t, DTensor):
+        return t.reshape(B, S, H, Dh)
+    n = 1
+    for i, p in enumerate(t.placements):
+        if p.is_shard(2):
+            n *= t.device_mesh.size(i)
+    if H % n:
+        t = shard(t, "batch", None, None)
+    # the grad is pinned to the heads' layout too, so that it never reaches
+    # the view's backward with a head cut across ranks
+    return shard(t.reshape(B, S, H, Dh), *_HEADS)
+
+
+def _merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """[B,S,H,Dh] -> [B,S,H*Dh], laid out for the row-parallel output
+    product (columns on ``model``).  Heads held whole by every rank (the
+    axis does not divide them) are merged replicated first, and their
+    grad gathered back there, for the view's backward."""
+    B, S, H, Dh = o.shape
+    out = o.reshape(B, S, H * Dh)
+    if not isinstance(o, DTensor):
+        return out
+    if not any(p.is_shard(2) for p in o.placements):
+        out = shard(out, "batch", None, None)
+    return shard(out, "batch", None, "heads_act")
+
+
 def _project_q(cfg: ModelConfig, p: Params, x: torch.Tensor,
                positions: Optional[torch.Tensor]) -> torch.Tensor:
     """q [B,S,Hq,Dh] with qk-norm + RoPE applied."""
     dt = torch_dtype(cfg.dtype)
-    q = x @ p["wq"].to(dt)
+    q = matmul(x, use(p["wq"], dt, None, "heads"))
     if cfg.qkv_bias:
-        q = q + p["bq"].to(dt)
-    B, S = x.shape[:2]
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+        q = q + use(p["bq"], dt, "heads")
+    q = _split_heads(q, cfg.num_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.rms_eps)
     return q if positions is None else _rotate(cfg, q, positions)
@@ -107,14 +148,13 @@ def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
     dt = torch_dtype(cfg.dtype)
     kv_x = x if kv_x is None else kv_x
     q = _project_q(cfg, p, x, positions)
-    k = kv_x @ p["wk"].to(dt)
-    v = kv_x @ p["wv"].to(dt)
+    k = matmul(kv_x, use(p["wk"], dt, None, "kv"))
+    v = matmul(kv_x, use(p["wv"], dt, None, "kv"))
     if cfg.qkv_bias:
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
-    B, Skv = kv_x.shape[:2]
-    k = k.reshape(B, Skv, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, Skv, cfg.num_kv_heads, cfg.head_dim)
+        k = k + use(p["bk"], dt, "kv")
+        v = v + use(p["bv"], dt, "kv")
+    k = _split_heads(k, cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(v, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         k = rmsnorm(k, p["k_norm"], cfg.rms_eps)
     if positions is not None:
@@ -129,10 +169,16 @@ def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 def repeat_kv(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
     """[B,S,Hkv,Dh] -> [B,S,Hq,Dh]."""
-    G = cfg.num_heads // cfg.num_kv_heads
+    return _repeat_heads(t, cfg.num_heads // cfg.num_kv_heads)
+
+
+def _repeat_heads(t: torch.Tensor, G: int) -> torch.Tensor:
+    """Each head of t [B,S,H,Dh] G times in a row (``repeat_interleave``
+    on dim 2, written as expand + reshape, which DTensor also takes)."""
     if G == 1:
         return t
-    return torch.repeat_interleave(t, G, dim=2)
+    B, S, H, Dh = t.shape
+    return t[:, :, :, None, :].expand(B, S, H, G, Dh).reshape(B, S, H * G, Dh)
 
 
 def _attend_chunked(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
@@ -141,13 +187,15 @@ def _attend_chunked(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     """softmax(QK^T)V with the q axis processed in ATTN_CHUNK blocks.
 
     Bounds the materialized score tensor to [B,H,chunk,Skv].
-    q: [B,Sq,Hq,Dh]  k,v: [B,Skv,Hkv,Dh]  ->  [B,Sq,Hq,Dh]
+    q: [B,Sq,Hq,Dh]  k,v: [B,Skv,Hkv,Dh]  ->  [B,Sq,Hq,Dh]; the group
+    size is Hq / Hkv of these tensors (a rank's heads on a mesh).
     """
     B, Sq, Hq, Dh = q.shape
     Skv = k.shape[1]
     scale = Dh ** -0.5
-    kf = repeat_kv(cfg, k).float()
-    vf = repeat_kv(cfg, v).float()
+    G = Hq // k.shape[2]
+    kf = _repeat_heads(k, G).float()
+    vf = _repeat_heads(v, G).float()
     kpos = torch.arange(Skv, device=q.device)
     if Sq > ATTN_CHUNK and Sq % ATTN_CHUNK:
         raise ValueError(f"Sq={Sq} must be <= or a multiple of {ATTN_CHUNK}")
@@ -164,10 +212,68 @@ def _attend_chunked(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     return torch.cat(out, dim=1)
 
 
-def _attend(cfg: ModelConfig, q, k, v, *, causal, q_offset: int = 0):
+def _attend_local(cfg: ModelConfig, q, k, v, *, causal, q_offset: int = 0):
     if cfg.attention_impl == "pallas":
         return kops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     return _attend_chunked(cfg, q, k, v, causal=causal, q_offset=q_offset)
+
+
+def _attend(cfg: ModelConfig, q, k, v, *, causal, q_offset: int = 0):
+    if isinstance(q, DTensor):
+        return _attend_sharded(cfg, q, k, v, causal=causal,
+                               q_offset=q_offset)
+    return _attend_local(cfg, q, k, v, causal=causal, q_offset=q_offset)
+
+
+_HEADS = ("batch", None, "heads_dim", None)
+
+
+def _repeat_to(cfg: ModelConfig, t: DTensor, heads) -> DTensor:
+    """``repeat_kv`` of t [B,S,Hkv,Dh] (its heads whole on every rank),
+    laid out by ``heads`` (q's placements): each rank repeats its kv heads
+    and keeps the block of Hq heads its q holds.  Its grad is a partial
+    sum over the ranks of that block (each covers some kv heads)."""
+    mesh = t.device_mesh
+    dims = [i for i, p in enumerate(heads) if p.is_shard(2)]
+    block, n = 0, 1
+    for i in dims:
+        block, n = block * mesh.size(i) + mesh.get_local_rank(i), \
+            n * mesh.size(i)
+    G = cfg.num_heads // cfg.num_kv_heads
+
+    def mine(local):
+        rep = _repeat_heads(local, G)
+        h = rep.shape[2] // n
+        return rep[:, :, block * h:(block + 1) * h]
+
+    grad = tuple(Partial() if i in dims else p
+                 for i, p in enumerate(t.placements))
+    return local_map(mine, out_placements=list(heads),
+                     in_placements=(t.placements,),
+                     in_grad_placements=(grad,), device_mesh=mesh)(t)
+
+
+def _attend_sharded(cfg: ModelConfig, q: DTensor, k: DTensor, v: DTensor, *,
+                    causal: bool, q_offset: int) -> DTensor:
+    """The attention on a mesh: q, k and v on the reference's layout
+    (``_HEADS``), then ``_attend_local`` on each rank's block, so flash
+    runs on the rank's own heads.  k and v keep their Hkv heads when the
+    model axis divides them: each rank then holds a contiguous block of
+    q heads and the kv heads those share (head h reads kv head h // G).
+    Otherwise they are repeated to Hq heads first, as the reference
+    repeats them (qwen3-moe's 4 kv heads on a 16-way axis)."""
+    repeat = layout(k, *_HEADS) != layout(q, *_HEADS)
+    q = shard(q, *_HEADS)
+    if repeat:
+        k, v = (_repeat_to(cfg, t, q.placements) for t in (k, v))
+    else:
+        k, v = shard(k, *_HEADS), shard(v, *_HEADS)
+    fn = local_map(functools.partial(_attend_local, cfg, causal=causal,
+                                     q_offset=q_offset),
+                   out_placements=list(q.placements),
+                   in_placements=(q.placements,) * 3,
+                   device_mesh=q.device_mesh)
+    return fn(q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -184,8 +290,7 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     dt = torch_dtype(cfg.dtype)
     q, k, v = _project_qkv(cfg, p, x, positions, kv_x, kv_positions)
     o = _attend(cfg, q, k, v, causal=causal)
-    B, S = x.shape[:2]
-    return o.reshape(B, S, cfg.q_dim) @ p["wo"].to(dt)
+    return matmul(_merge_heads(o), use(p["wo"], dt, "heads", None))
 
 
 def attention_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -196,7 +301,7 @@ def attention_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q, k, v = _project_qkv(cfg, p, x, positions)
     o = _attend(cfg, q, k, v, causal=True)
     B, S = x.shape[:2]
-    out = o.reshape(B, S, cfg.q_dim) @ p["wo"].to(dt)
+    out = matmul(_merge_heads(o), use(p["wo"], dt, "heads", None))
     cache = {"k": k.reshape(B, S, cfg.kv_dim), "v": v.reshape(B, S, cfg.kv_dim)}
     return out, cache
 
@@ -216,29 +321,87 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """
     dt = torch_dtype(cfg.dtype)
     B = x.shape[0]
-    Smax = cache_k.shape[1]
     q, k, v = _project_qkv(cfg, p, x, positions)
     k = k.reshape(B, cfg.kv_dim).to(cache_k.dtype)
     v = v.reshape(B, cfg.kv_dim).to(cache_v.dtype)
-    bidx = torch.arange(B, device=x.device)
+    if isinstance(q, DTensor):
+        o = _decode_sharded(cfg, q, k, v, cache_k, cache_v, cache_index)
+    else:
+        o = _decode_local(cfg, q, k, v, cache_k, cache_v, cache_index)
+    o = o.to(dt).reshape(B, 1, cfg.q_dim)
+    return matmul(o, use(p["wo"], dt, "heads", None)), cache_k, cache_v
+
+
+def _write_rows(k, v, cache_k, cache_v, cache_index) -> None:
+    """Row ``cache_index[b]`` of slot b of the caches := k[b], v[b], in
+    place, for the slots whose index is in range."""
+    B, Smax = cache_k.shape[:2]
+    bidx = torch.arange(B, device=k.device)
     keep = (cache_index < Smax)[:, None]
     pos = cache_index.clamp(max=Smax - 1)
     # out-of-range slots rewrite their last row with its own value: no sync
     cache_k[bidx, pos] = torch.where(keep, k, cache_k[bidx, pos])
     cache_v[bidx, pos] = torch.where(keep, v, cache_v[bidx, pos])
-    G = cfg.num_heads // cfg.num_kv_heads
-    kk = cache_k.reshape(B, Smax, cfg.num_kv_heads, cfg.head_dim)
-    vv = cache_v.reshape(B, Smax, cfg.num_kv_heads, cfg.head_dim)
+
+
+def _decode_attend(cfg: ModelConfig, q, cache_k, cache_v, cache_index):
+    """q [B,1,Hq,Dh] against the caches' rows up to each slot's index, by
+    the heads these tensors hold (a rank's heads on a mesh) -> f32
+    [B,Hkv,G,Dh]."""
+    B, Smax = cache_k.shape[:2]
+    Dh = cfg.head_dim
+    Hkv = cache_k.shape[-1] // Dh
+    G = q.shape[2] // Hkv
+    kk = cache_k.reshape(B, Smax, Hkv, Dh)
+    vv = cache_v.reshape(B, Smax, Hkv, Dh)
     # grouped einsum instead of the reference's repeat_kv: same sums, no
     # [B,Smax,Hq,Dh] copy of the cache
-    qg = q.reshape(B, cfg.num_kv_heads, G, cfg.head_dim)
-    scale = cfg.head_dim ** -0.5
-    s = torch.einsum("bhgd,bshd->bhgs", qg.float() * scale, kk.float())
+    qg = q.reshape(B, Hkv, G, Dh)
+    s = torch.einsum("bhgd,bshd->bhgs", qg.float() * Dh ** -0.5, kk.float())
     # mask positions beyond each slot's index (index = this token's slot)
-    valid = (torch.arange(Smax, device=x.device)[None, :]
+    valid = (torch.arange(Smax, device=q.device)[None, :]
              <= cache_index[:, None])[:, None, None, :]
     s = torch.where(valid, s, NEG_INF)
     w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgs,bshd->bhgd", w, vv.float())
-    o = o.to(dt).reshape(B, 1, cfg.q_dim)
-    return o @ p["wo"].to(dt), cache_k, cache_v
+    return torch.einsum("bhgs,bshd->bhgd", w, vv.float())
+
+
+def _decode_local(cfg: ModelConfig, q, k, v, cache_k, cache_v, cache_index):
+    _write_rows(k, v, cache_k, cache_v, cache_index)
+    return _decode_attend(cfg, q, cache_k, cache_v, cache_index)
+
+
+def _decode_sharded(cfg: ModelConfig, q: DTensor, k: DTensor, v: DTensor,
+                    cache_k: DTensor, cache_v: DTensor,
+                    cache_index: DTensor) -> DTensor:
+    """Decode on a mesh.  The new rows are laid out as the cache's blocks
+    and each rank writes its own rows into its block, in place.  When a
+    block holds whole kv heads the attention runs on it, with q on the
+    same heads; otherwise (a kv head split across ranks) it reads a copy
+    of the cache with those heads gathered.  Returns [B,Hkv,G,Dh] f32."""
+    mesh = q.device_mesh
+    cp = tuple(cache_k.placements)
+    if any(p.is_shard(1) for p in cp):
+        raise NotImplementedError("decode on a sequence-sharded cache "
+                                  "(shard_seq) is not ported")
+
+    def moved(placements, dims):
+        """``placements`` of the cache, on the dims ``dims`` maps to."""
+        return tuple(Shard(dims[p.dim]) if p.is_shard() and p.dim in dims
+                     else Replicate() for p in placements)
+
+    index = cache_index.redistribute(mesh, moved(cp, {0: 0}))
+    rows = moved(cp, {0: 0, 2: 1})
+    _write_rows(k.redistribute(mesh, rows).to_local(),
+                v.redistribute(mesh, rows).to_local(), cache_k.to_local(),
+                cache_v.to_local(), index.to_local())
+    if cache_k.to_local().shape[-1] % cfg.head_dim:
+        cp = tuple(Replicate() if p.is_shard(2) else p for p in cp)
+        cache_k = cache_k.redistribute(mesh, cp)
+        cache_v = cache_v.redistribute(mesh, cp)
+    heads = moved(cp, {0: 0, 2: 2})
+    return local_map(functools.partial(_decode_attend, cfg),
+                     out_placements=list(moved(cp, {0: 0, 2: 1})),
+                     in_placements=(heads, cp, cp, index.placements),
+                     device_mesh=mesh)(q.redistribute(mesh, heads), cache_k,
+                                       cache_v, index)

@@ -1,7 +1,11 @@
 """Decoder transformer block (dense MLP or MoE) shared by the dense and
 MoE families.
 
-Counterpart of ``repro/models/blocks.py``.
+Counterpart of ``repro/models/blocks.py``.  On a mesh, the attention's
+and the MLP's outputs (partial sums over the ``model`` axis after their
+row-parallel products) are laid out as the residual stream before they
+are added to it (``_residual``): one all-reduce each, the layout XLA
+gives the reference there.
 """
 from __future__ import annotations
 
@@ -19,6 +23,11 @@ from repro_torch.models.layers import (
     torch_dtype,
 )
 from repro_torch.models.moe import moe_apply, moe_axes, moe_init
+from repro_torch.parallel.context import shard
+
+
+def _residual(x: torch.Tensor) -> torch.Tensor:
+    return shard(x, "batch", None, "embed_act")
 
 
 def block_init(cfg: ModelConfig, gen: torch.Generator,
@@ -54,7 +63,7 @@ def _ffn(cfg: ModelConfig, p: Params, h: torch.Tensor,
     else:
         y = mlp_apply(cfg, p["mlp"], x)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return h + y, aux
+    return h + _residual(y), aux
 
 
 def block_apply(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -62,7 +71,7 @@ def block_apply(cfg: ModelConfig, p: Params, h: torch.Tensor,
     """Full-sequence forward.  h: [B,S,d] -> (h, aux_loss)."""
     a = attention_apply(cfg, p["attn"], rmsnorm(h, p["ln1"], cfg.rms_eps),
                         positions, causal=True)
-    return _ffn(cfg, p, h + a)
+    return _ffn(cfg, p, h + _residual(a))
 
 
 def block_prefill(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -71,7 +80,7 @@ def block_prefill(cfg: ModelConfig, p: Params, h: torch.Tensor,
                              torch.Tensor]:
     a, cache = attention_prefill(cfg, p["attn"],
                                  rmsnorm(h, p["ln1"], cfg.rms_eps), positions)
-    h, aux = _ffn(cfg, p, h + a)
+    h, aux = _ffn(cfg, p, h + _residual(a))
     return h, cache, aux
 
 
@@ -82,5 +91,5 @@ def block_decode(cfg: ModelConfig, p: Params, h: torch.Tensor,
     a, ck, cv = attention_decode(cfg, p["attn"],
                                  rmsnorm(h, p["ln1"], cfg.rms_eps),
                                  positions, cache_k, cache_v, index)
-    h, _ = _ffn(cfg, p, h + a)
+    h, _ = _ffn(cfg, p, h + _residual(a))
     return h, ck, cv

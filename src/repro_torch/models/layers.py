@@ -14,12 +14,85 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.parallel.context import current_ctx, layout
 
 Params = Dict[str, Any]
 # logical axis names of each parameter dim (``parallel/sharding.py``)
 Axes = Dict[str, Any]
+
+
+def use(w: torch.Tensor, dt: torch.dtype, *logical: Optional[str]
+        ) -> torch.Tensor:
+    """Weight ``w`` cast to ``dt`` and, under a mesh context, laid out by
+    ``logical``: its parameter axes with ``"embed"`` left out.  So an
+    ``fsdp`` weight is all-gathered over the data axis just before its
+    product (ZeRO-3; autograd reduce-scatters its grad back), and the
+    product keeps the activations batch-sharded instead of the layout
+    DTensor's propagation would choose (partial sums over the whole
+    global batch for the unembedding).  Unlike ``shard`` the grad is left
+    to DTensor, which reduce-scatters a partial-sum grad straight into the
+    param's own layout.  Without a context, ``w.to(dt)``."""
+    w = w.to(dt)
+    if current_ctx() is None or not isinstance(w, DTensor):
+        return w
+    placements = layout(w, *logical)
+    if w.placements == placements:
+        return w
+    return w.redistribute(w.device_mesh, placements)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ w [K, N].  On DTensors laid out for tensor parallelism
+    the product runs on each rank's blocks with the layout fixed by the
+    operands', mesh dim by mesh dim: x's K and w's K sharded alike give a
+    partial sum (row parallel); w's N sharded, x's K not, give N sharded
+    (column parallel); x's rows sharded and w replicated keep the rows
+    sharded.  The grads are laid out to match (x's partial under column
+    parallelism, w's partial over the row shards).  DTensor's own
+    propagation would search every layout of every operand for each new
+    product, which on a 3-D mesh takes seconds a product; any other
+    layout is left to it.  A row-parallel product in bf16 or f16 comes
+    back reduced (summed in f32), not partial."""
+    if not isinstance(x, DTensor):
+        return x @ w
+    last = x.ndim - 1
+    out, gx, gw = [], [], []
+    for px, pw in zip(x.placements, w.placements):
+        if px.is_shard(last) and pw.is_shard(0):
+            out.append(Partial()); gx.append(px); gw.append(pw)
+        elif pw.is_shard(1) and isinstance(px, Replicate):
+            out.append(Shard(last)); gx.append(Partial()); gw.append(pw)
+        elif px.is_shard() and px.dim < last and isinstance(pw, Replicate):
+            out.append(px); gx.append(px); gw.append(Partial())
+        elif isinstance(px, Replicate) and isinstance(pw, Replicate):
+            out.append(px); gx.append(px); gw.append(pw)
+        else:
+            return x @ w
+    partial = any(isinstance(p, Partial) for p in out)
+    if not (partial and x.dtype in (torch.bfloat16, torch.float16)):
+        return local_map(torch.matmul, out_placements=out,
+                         in_placements=(x.placements, w.placements),
+                         in_grad_placements=(tuple(gx), tuple(gw)),
+                         device_mesh=x.device_mesh)(x, w)
+    # a row-parallel product in low precision: each rank's partial sum is
+    # kept in f32 (exact products of the bf16 operands, f32 sums), the
+    # partials summed in f32 and the result rounded once, as one device's
+    # product rounds its f32 accumulator once.  Partials rounded to bf16
+    # first flip ~40% of the output's last bits, and two layers of that put
+    # the logits ~1e-2 (relative RMS) from the one-device run.  The f32
+    # product here runs off the tensor cores; a bf16 GEMM with an f32
+    # output would not.
+    y = local_map(lambda a, b: torch.matmul(a.float(), b.float()),
+                  out_placements=out,
+                  in_placements=(x.placements, w.placements),
+                  in_grad_placements=(tuple(gx), tuple(gw)),
+                  device_mesh=x.device_mesh)(x, w)
+    whole = tuple(Replicate() if isinstance(p, Partial) else p for p in out)
+    return y.redistribute(x.device_mesh, whole).to(x.dtype)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -63,7 +136,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * scale.float()).to(dt)
+    return (x * use(scale, torch.float32, None)).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -152,9 +225,9 @@ def mlp_axes(cfg: ModelConfig) -> Axes:
 
 def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     dt = torch_dtype(cfg.dtype)
-    gate = x @ p["wi_gate"].to(dt)
-    up = x @ p["wi_up"].to(dt)
-    return (F.silu(gate) * up) @ p["wo"].to(dt)
+    gate = matmul(x, use(p["wi_gate"], dt, None, "mlp"))
+    up = matmul(x, use(p["wi_up"], dt, None, "mlp"))
+    return matmul(F.silu(gate) * up, use(p["wo"], dt, "mlp", None))
 
 
 # ---------------------------------------------------------------------------
@@ -187,9 +260,13 @@ def embedding_axes(cfg: ModelConfig) -> Axes:
 
 def embed_tokens(cfg: ModelConfig, p: Params,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return p["embedding"][tokens].to(torch_dtype(cfg.dtype))
+    """The table's rows at ``tokens``.  On a vocab-sharded table each rank
+    looks up the tokens of its vocab block (zeros elsewhere), and the
+    caller's ``shard`` sums the blocks."""
+    table = use(p["embedding"], p["embedding"].dtype, "vocab", None)
+    return F.embedding(tokens, table).to(torch_dtype(cfg.dtype))
 
 
 def unembed(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     w = p["embedding"].T if cfg.tie_embeddings else p["unembed"]
-    return h @ w.to(torch_dtype(cfg.dtype))
+    return matmul(h, use(w, torch_dtype(cfg.dtype), None, "vocab"))

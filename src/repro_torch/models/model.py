@@ -34,17 +34,24 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
-from repro_torch.config.base import ENCDEC, HYBRID, SSM, ModelConfig
+from repro_torch.config.base import (
+    DENSE, ENCDEC, HYBRID, MOE, SSM, ModelConfig,
+)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as RW
+from repro_torch.parallel.context import (
+    current_ctx, distribute, shard, sharding_ctx,
+)
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
@@ -115,7 +122,8 @@ def param_axes(cfg: ModelConfig) -> Any:
 def _frontend(cfg: ModelConfig, p: Params, batch: Batch) -> torch.Tensor:
     """The frontend embeddings [B,Sf,E] projected to [B,Sf,d]."""
     dt = L.torch_dtype(cfg.dtype)
-    return batch["frontend"].to(dt) @ p["embed"]["frontend_proj"].to(dt)
+    return L.matmul(batch["frontend"].to(dt),
+                    L.use(p["embed"]["frontend_proj"], dt, None, None))
 
 
 def _prepends_frontend(cfg: ModelConfig, batch: Batch) -> bool:
@@ -125,17 +133,28 @@ def _prepends_frontend(cfg: ModelConfig, batch: Batch) -> bool:
         and cfg.family != ENCDEC
 
 
+def _check_mesh(cfg: ModelConfig, tokens: torch.Tensor) -> None:
+    """On a mesh (DTensor inputs) only the dense and MoE families run: the
+    others' layers have no layout pinned yet, and DTensor's own choices
+    would gather whole tensors, so they are refused."""
+    if isinstance(tokens, DTensor) and cfg.family not in (DENSE, MOE):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family on a DeviceMesh is not "
+            "ported (ROADMAP slice (g3))")
+
+
 def _embed_inputs(cfg: ModelConfig, p: Params, batch: Batch) -> torch.Tensor:
     """Token embeddings, with modality-frontend embeddings prepended."""
+    _check_mesh(cfg, batch["tokens"])
     h = L.embed_tokens(cfg, p["embed"], batch["tokens"])
     if _prepends_frontend(cfg, batch):
         h = torch.cat([_frontend(cfg, p, batch), h], dim=1)
-    return h
+    return shard(h, "batch", None, "embed_act")
 
 
 def _logits(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     h = L.rmsnorm(h, p["final_norm"], cfg.rms_eps)
-    return L.unembed(cfg, p["embed"], h)
+    return shard(L.unembed(cfg, p["embed"], h), "batch", None, "vocab_act")
 
 
 # ---------------------------------------------------------------------------
@@ -186,12 +205,18 @@ BlockFn = Callable[[Params, torch.Tensor],
                    Tuple[torch.Tensor, Optional[torch.Tensor]]]
 
 
-def _apply_group(apply_fn: BlockFn, group: List[Params], h: torch.Tensor,
-                 aux: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    for lp in group:
-        h, a = apply_fn(lp, h)
-        if a is not None:
-            aux = aux + a
+def _apply_group(apply_fn: BlockFn, group: List[Params], ctx,
+                 h: torch.Tensor, aux: torch.Tensor,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    # the group runs under the context it was called in: a remat region is
+    # recomputed in the backward, which on a CUDA device runs on autograd's
+    # own thread, where the caller's (thread-local) context is not active
+    with sharding_ctx(ctx):
+        h = shard(h, "batch", None, "embed_act")
+        for lp in group:
+            h, a = apply_fn(lp, h)
+            if a is not None:
+                aux = aux + a
     return h, aux
 
 
@@ -209,7 +234,8 @@ def _scan_blocks(cfg: ModelConfig, blocks: List[Params], h: torch.Tensor,
     remat = cfg.remat != "none" and torch.is_grad_enabled()
     kw = _remat_kwargs(cfg) if remat else {}
     for i in range(0, len(blocks), g):
-        run = functools.partial(_apply_group, apply_fn, blocks[i:i + g])
+        run = functools.partial(_apply_group, apply_fn, blocks[i:i + g],
+                                current_ctx())
         if remat:
             h, aux = checkpoint(run, h, aux, use_reentrant=False, **kw)
         else:
@@ -246,7 +272,7 @@ def _encode(cfg: ModelConfig, p: Params, batch: Batch,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The encoder over the projected frontend: (enc_h [B,Senc,d] after
     ``enc_norm``, enc_positions [B,Senc])."""
-    enc_h = _frontend(cfg, p, batch)
+    enc_h = shard(_frontend(cfg, p, batch), "batch", None, "embed_act")
     Bsz, Senc = enc_h.shape[:2]
     enc_positions = torch.arange(Senc, device=enc_h.device).expand(Bsz, Senc)
 
@@ -273,10 +299,13 @@ def loss_fn(cfg: ModelConfig, p: Params, batch: Batch,
         # frontend positions carry no next-token target; score text tail only
         logits = logits[:, -targets.shape[1]:, :]
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
     mask = (targets >= 0).float()
     tgt = torch.where(targets >= 0, targets, 0).long()
-    ll = torch.gather(lf, -1, tgt[..., None])[..., 0]
+    if isinstance(lf, DTensor):
+        lse, ll = _lse_and_target_sharded(lf, tgt)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1, tgt[..., None])[..., 0]
     nll = (lse - ll) * mask
     denom = torch.clamp(mask.sum(), min=1.0)
     ce = nll.sum() / denom
@@ -284,6 +313,39 @@ def loss_fn(cfg: ModelConfig, p: Params, batch: Batch,
     total = ce + z + aux
     return total, {"loss": total, "ce": ce, "aux": aux, "z": z,
                    "tokens": mask.sum()}
+
+
+def _lse_and_target_sharded(lf: DTensor, tgt: DTensor
+                            ) -> Tuple[DTensor, DTensor]:
+    """logsumexp over the vocab and the target's logit, for logits whose
+    vocab may be sharded: the max, the sum of exponentials and the
+    target's logit are reduced over the vocab's ranks (a [B, S] all-reduce
+    each), never the logits themselves.  Each rank picks the targets that
+    fall in its vocab block (0 elsewhere), a partial sum."""
+    mx = lf.detach().amax(dim=-1, keepdim=True)
+    lse = (lf - mx).exp().sum(dim=-1).log() + mx[..., 0]
+    mesh = lf.device_mesh
+    rows = tuple(p if p.is_shard(0) else Replicate() for p in lf.placements)
+    vocab = [i for i, p in enumerate(lf.placements) if p.is_shard(2)]
+    # this rank's vocab block: its coordinates on those mesh dims, major
+    # first, as DTensor splits a dim over several mesh dims
+    block = 0
+    for i in vocab:
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+
+    def pick(lf_loc, tgt_loc):
+        v = lf_loc.shape[-1]
+        t = tgt_loc - block * v
+        inside = (t >= 0) & (t < v)
+        got = torch.gather(lf_loc, -1, t.clamp(0, v - 1)[..., None])[..., 0]
+        return torch.where(inside, got, 0.0)
+
+    ll = local_map(pick, out_placements=[
+        Partial() if p.is_shard(2) else r
+        for p, r in zip(lf.placements, rows)],
+        in_placements=(lf.placements, rows), device_mesh=mesh)(
+        lf, tgt.redistribute(mesh, rows))
+    return lse, ll
 
 
 # ---------------------------------------------------------------------------
@@ -390,26 +452,47 @@ def prefill(cfg: ModelConfig, p: Params, batch: Batch, max_len: int,
     Bsz, prefilled = batch["tokens"].shape
     if _prepends_frontend(cfg, batch):
         prefilled += batch["frontend"].shape[1]
-    cache["index"] = torch.full((Bsz,), prefilled, dtype=torch.int32,
-                                device=h.device)
+    index = torch.full((Bsz,), prefilled, dtype=torch.int32, device=h.device)
+    cache["index"] = distribute(index, "batch") \
+        if isinstance(h, DTensor) else index
     return _logits(cfg, p, h[:, -1:, :]), cache
 
 
 def _embed_cache(cfg: ModelConfig, kvs: List[Dict[str, torch.Tensor]],
                  batch: int, max_len: int) -> Params:
-    """Pad per-layer prefill K/V [B,S,kv] into a [L,B,max_len,kv] cache."""
+    """Pad per-layer prefill K/V [B,S,kv] into a [L,B,max_len,kv] cache;
+    on a mesh each rank pads its own block, and the cache is laid out by
+    ``cache_logical_axes``."""
     S = kvs[0]["k"].shape[1]
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len={max_len}")
-    dt = L.torch_dtype(cfg.dtype)
+    pad = functools.partial(_pad_stack, max_len=max_len,
+                            dtype=L.torch_dtype(cfg.dtype))
     out = {}
     for name in ("k", "v"):
-        t = torch.zeros((len(kvs), batch, max_len, cfg.kv_dim), dtype=dt,
-                        device=kvs[0][name].device)
-        for i, kv in enumerate(kvs):
-            t[i, :, :S] = kv[name]
-        out[name] = t
+        parts = [kv[name] for kv in kvs]
+        if not isinstance(parts[0], DTensor):
+            out[name] = pad(*parts)
+            continue
+        parts = [shard(t, "batch", None, "kv_act") for t in parts]
+        pl = parts[0].placements
+        stacked = tuple(type(p)(p.dim + 1) if p.is_shard() else p
+                        for p in pl)
+        out[name] = local_map(pad, out_placements=list(stacked),
+                              in_placements=(pl,) * len(parts),
+                              device_mesh=parts[0].device_mesh)(*parts)
     return out
+
+
+def _pad_stack(*parts: torch.Tensor, max_len: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    """[B,S,kv] a layer -> [L,B,max_len,kv], zeros past S."""
+    Bsz, S, kv = parts[0].shape
+    t = torch.zeros((len(parts), Bsz, max_len, kv), dtype=dtype,
+                    device=parts[0].device)
+    for i, part in enumerate(parts):
+        t[i, :, :S] = part
+    return t
 
 
 def decode_step(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
@@ -421,8 +504,10 @@ def decode_step(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
     new tensor, one higher for every slot, active or not, as in the
     reference.
     """
+    _check_mesh(cfg, tokens)
     index = cache["index"]
-    h = L.embed_tokens(cfg, p["embed"], tokens)
+    h = shard(L.embed_tokens(cfg, p["embed"], tokens), "batch", None,
+              "embed_act")
     pos = index[:, None]
     if cfg.mrope_sections:
         pos = index[None, :, None].expand(3, tokens.shape[0], 1)
@@ -437,6 +522,7 @@ def decode_step(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
             h = HY.superblock_decode(cfg, lp, h, pos, ce, index)
             continue
         if cfg.family != SSM:
+            h = shard(h, "batch", None, "embed_act")
             h, _, _ = B.block_decode(cfg, lp, h, pos, cache["k"][i],
                                      cache["v"][i], index)
             continue

@@ -14,17 +14,33 @@ per-expert products over the buffer run:
   * otherwise  - ``torch.einsum``, as the reference computes them.
 Both compute the reference's function: bf16 products summed in f32 and
 rounded once.  The routing, capacity and dropping are the same on both.
+
+On a mesh (DTensor tokens under ``parallel/context.py``) the layer keeps
+the reference's global function: one capacity and one running count
+over all the tokens of a chunk.  So the router, the top-k, the slot
+count, the dispatch and the combine run on the tokens gathered from the
+data axes, alike on every rank; the dispatch buffer is then cut to
+``Shard(0)`` on ``model`` (``"experts_act"``), so the three products run
+on each rank's own E/tp experts (``gmm`` under ``pallas``), and the
+outputs are gathered back over ``model`` for the combine, whose result
+is batch-sharded again by the caller's ``shard``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import Axes, Params, dense_init, torch_dtype
+from repro_torch.models.layers import (
+    Axes, Params, dense_init, torch_dtype, use,
+)
+from repro_torch.parallel.context import shard
 
 AUX_LOSS_COEF = 0.01
 
@@ -73,6 +89,9 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     B, S, d = x.shape
     T = B * S
     Tc = m.chunk_tokens
+    sharded = isinstance(x, DTensor)
+    if sharded:   # every rank routes all the tokens
+        x = x.redistribute(x.device_mesh, (Replicate(),) * x.device_mesh.ndim)
     xf = x.reshape(T, d)
     if Tc and T > Tc and T % Tc == 0:
         nc = T // Tc
@@ -82,16 +101,17 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
             yc, a = _moe_tokens(cfg, p, xc)
             ys.append(yc)
             aux = aux + a
-        return torch.cat(ys).reshape(B, S, d), aux / nc
-    out, aux = _moe_tokens(cfg, p, xf)
-    return out.reshape(B, S, d), aux
+        out, aux = torch.cat(ys), aux / nc
+    else:
+        out, aux = _moe_tokens(cfg, p, xf)
+    out = out.reshape(B, S, d)
+    return (shard(out, "batch", None, "embed_act") if sharded else out), aux
 
 
-def _expert_products(cfg: ModelConfig, p: Params, xe: torch.Tensor,
-                     ) -> torch.Tensor:
-    """The per-expert SwiGLU over the dispatch buffer xe [E, C+1, d]."""
-    dt = xe.dtype
-    wg, wu, wo = (p[k].to(dt) for k in ("wi_gate", "wi_up", "wo"))
+def _expert_products(cfg: ModelConfig, wg: torch.Tensor, wu: torch.Tensor,
+                     wo: torch.Tensor, xe: torch.Tensor) -> torch.Tensor:
+    """The per-expert SwiGLU over the dispatch buffer xe [E, C+1, d], by
+    the experts these tensors hold (a rank's own on a mesh)."""
     if cfg.scan_impl == "pallas":
         gate = kops.gmm_equal(xe, wg)
         up = kops.gmm_equal(xe, wu)
@@ -101,15 +121,50 @@ def _expert_products(cfg: ModelConfig, p: Params, xe: torch.Tensor,
     return torch.einsum("ecf,efd->ecd", F.silu(gate) * up, wo)
 
 
-def _moe_tokens(cfg: ModelConfig, p: Params, xf: torch.Tensor,
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Route + dispatch + expert FFN + combine for a flat [T, d] slab."""
+def _experts(cfg: ModelConfig, p: Params, xe: torch.Tensor) -> torch.Tensor:
+    """``_expert_products`` with the weights in ``xe``'s dtype; on a mesh,
+    on each rank's experts (``"experts"`` on ``model``; an ``fsdp``
+    weight's ``"embed"`` gathered first), the buffer cut to match and the
+    outputs gathered back."""
+    dt = xe.dtype
+    w = [use(p["wi_gate"], dt, "experts", None, None),
+         use(p["wi_up"], dt, "experts", None, None),
+         use(p["wo"], dt, "experts", None, None)]
+    if not isinstance(xe, DTensor):
+        return _expert_products(cfg, *w, xe)
+    full = xe.placements
+    xe = shard(xe, "experts_act", None, None)
+    pl = xe.placements
+    ye = local_map(functools.partial(_expert_products, cfg),
+                   out_placements=list(pl),
+                   in_placements=tuple(t.placements for t in w) + (pl,),
+                   device_mesh=xe.device_mesh)(*w, xe)
+    return ye.redistribute(ye.device_mesh, full)
+
+
+def _on_tokens(fn, n_out: int, *args):
+    """``fn`` (``n_out`` outputs) on the local tensors of replicated
+    DTensors (every rank holds all the tokens), its outputs replicated
+    again; plain tensors go straight through."""
+    first = args[0]
+    if not isinstance(first, DTensor):
+        return fn(*args)
+    rep = [Replicate()] * first.device_mesh.ndim
+    return local_map(fn, out_placements=rep if n_out == 1 else (rep,) * n_out,
+                     in_placements=tuple(rep for _ in args),
+                     device_mesh=first.device_mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def _route(cfg: ModelConfig, router: torch.Tensor, xf: torch.Tensor, C: int):
+    """Router, top-k, slots and dispatch of a flat [T, d] slab: (xe
+    [E, C+1, d], the assignments' experts and slots [T*k], whether each
+    was kept, their gate weights [T, k], the aux loss)."""
     m = cfg.moe
     dt = torch_dtype(cfg.dtype)
     T, d = xf.shape
     E, k = m.num_experts, m.experts_per_token
-    C = _capacity(m, T)
-    logits = xf.float() @ p["router"].float()                 # [T, E]
+    logits = xf.float() @ router                              # [T, E]
     probs = torch.softmax(logits, dim=-1)
     gate_w, ids = torch.topk(probs, k, dim=-1)                # [T, k]
     gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True)        # renormalize
@@ -124,7 +179,8 @@ def _moe_tokens(cfg: ModelConfig, p: Params, xf: torch.Tensor,
     # assignment among its expert's in a stable sort, the same integers)
     ids_flat = ids.reshape(T * k)
     order = torch.argsort(ids_flat, stable=True)
-    counts = torch.bincount(ids_flat, minlength=E)
+    counts = torch.zeros(E, dtype=ids_flat.dtype, device=xf.device
+                         ).scatter_add_(0, ids_flat, torch.ones_like(ids_flat))
     starts = torch.cumsum(counts, dim=0) - counts              # [E]
     rank = torch.arange(T * k, device=xf.device) - starts[ids_flat[order]]
     pos_flat = torch.empty_like(rank).scatter_(0, order, rank)
@@ -135,14 +191,28 @@ def _moe_tokens(cfg: ModelConfig, p: Params, xf: torch.Tensor,
     upd = xf.to(dt).repeat_interleave(k, dim=0)               # [T*k, d]
     xe = torch.zeros((E * (C + 1), d), dtype=dt, device=xf.device)
     xe.index_add_(0, ids_flat * (C + 1) + pos_flat, upd)
-    xe = xe.view(E, C + 1, d)
+    return xe.view(E, C + 1, d), ids_flat, pos_flat, keep, gate_w, aux
 
-    ye = _expert_products(cfg, p, xe)                         # [E, C+1, d]
 
-    # ---- combine: gather back + weighted sum over k ---------------------
+def _combine(ye: torch.Tensor, ids_flat, pos_flat, keep, gate_w):
+    """Gather each assignment's output back and sum a token's k of them,
+    weighted (a dropped one by 0)."""
+    T, k = gate_w.shape
     back = ye[ids_flat, pos_flat]                             # [T*k, d]
-    back = back * (keep[:, None] * gate_w.reshape(T * k)[:, None]).to(dt)
-    out = back.reshape(T, k, d).sum(dim=1)
+    back = back * (keep[:, None] * gate_w.reshape(T * k)[:, None]).to(
+        ye.dtype)
+    return back.reshape(T, k, -1).sum(dim=1)
+
+
+def _moe_tokens(cfg: ModelConfig, p: Params, xf: torch.Tensor,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Route + dispatch + expert FFN + combine for a flat [T, d] slab."""
+    C = _capacity(cfg.moe, xf.shape[0])
+    router = use(p["router"], torch.float32, None, None)
+    xe, ids_flat, pos_flat, keep, gate_w, aux = _on_tokens(
+        functools.partial(_route, cfg, C=C), 6, router, xf)
+    ye = _experts(cfg, p, xe)                                 # [E, C+1, d]
+    out = _on_tokens(_combine, 1, ye, ids_flat, pos_flat, keep, gate_w)
     return out, aux
 
 

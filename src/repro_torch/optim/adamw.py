@@ -18,12 +18,18 @@ the reference stacks the layers on a leading axis.  Two things follow:
   fit beside the grads and moments.  A large leaf is updated in slabs of
   rows, which bounds the temporaries and changes no result (every op is
   elementwise or works within a row's int8 blocks).
+
+On a mesh the leaves are DTensors laid out by ``parallel/sharding.py``:
+``global_norm`` reduces each leaf as DTensor does (a replicated element
+counts once), and ``adamw_update`` brings each grad to its param's
+placements, then updates each rank's own blocks.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.config.base import OptimConfig
 
@@ -107,21 +113,40 @@ def q8_decode(codes: torch.Tensor, scale: torch.Tensor, block: int
 # ---------------------------------------------------------------------------
 
 def init_state(params: Params, cfg: OptimConfig) -> Dict[str, Any]:
-    """Zero moments beside ``params`` (same devices), ``count`` 0 (int32)."""
+    """Zero moments beside ``params`` (same devices), ``count`` 0 (int32).
+    On DTensor params each moment is laid out as ``state_axes`` lays it:
+    like its param, an int8 moment's scales with the last dim's blocks
+    unsharded; ``count`` replicated.  Each rank allocates its blocks only."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     def zq(p):
         p = p if p.dim() else p.reshape(1)
         nb = _blocks(p.shape[-1], cfg.int8_block)
-        return {"q": torch.zeros(p.shape, dtype=torch.int8, device=p.device),
-                "s": torch.zeros(p.shape[:-1] + (nb,), dtype=torch.float32,
-                                 device=p.device)}
+        q = torch.zeros_like(p, dtype=torch.int8)
+        shape = p.shape[:-1] + (nb,)
+        if not isinstance(p, DTensor):
+            return {"q": q, "s": torch.zeros(shape, dtype=torch.float32,
+                                             device=p.device)}
+        last = p.dim() - 1
+        pl = tuple(Replicate() if x.is_shard(last) else x
+                   for x in p.placements)
+        local = p.to_local().shape[:-1] + (nb,)
+        s = DTensor.from_local(
+            torch.zeros(local, dtype=torch.float32, device=p.device),
+            p.device_mesh, pl, run_check=False, shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+        return {"q": q, "s": s}
 
     mk = zq if cfg.state_dtype == "int8" else zeros
-    device = tree_leaves(params)[0].device
+    first = tree_leaves(params)[0]
+    count = torch.zeros((), dtype=torch.int32, device=first.device)
+    if isinstance(first, DTensor):
+        count = DTensor.from_local(count, first.device_mesh,
+                                   [Replicate()] * first.device_mesh.ndim,
+                                   run_check=False)
     return {"m": tree_map(mk, params), "v": tree_map(mk, params),
-            "count": torch.zeros((), dtype=torch.int32, device=device)}
+            "count": count}
 
 
 def state_axes(param_axes_tree: Any, cfg: OptimConfig) -> Dict[str, Any]:
@@ -146,9 +171,15 @@ def state_axes(param_axes_tree: Any, cfg: OptimConfig) -> Dict[str, Any]:
 
 @torch.no_grad()
 def global_norm(tree: Params) -> torch.Tensor:
+    """The L2 norm of all the leaves, a plain 0-dim tensor.  A DTensor
+    leaf's sum of squares is DTensor's own reduction, which counts a
+    replicated element once (a sum of the local blocks followed by an
+    all-reduce would count it once a replica)."""
     total = None
     for x in tree_leaves(tree):
         sq = x.float().square().sum()
+        if isinstance(sq, DTensor):
+            sq = sq.full_tensor()
         total = sq if total is None else total + sq
     return total.sqrt()
 
@@ -185,7 +216,7 @@ def adamw_update(grads: Params, state: Dict[str, Any], params: Params,
     """One AdamW step, in place: ``params`` and ``state``'s moments and
     count are overwritten; returns (params, state), the same objects."""
     count = state["count"] + 1
-    cf = count.float()
+    cf = _local(count).float() if isinstance(count, DTensor) else count.float()
     bc1 = 1.0 - cfg.b1 ** cf
     bc2 = 1.0 - cfg.b2 ** cf
     blk = cfg.int8_block
@@ -223,7 +254,62 @@ def adamw_update(grads: Params, state: Dict[str, Any], params: Params,
     for p, g, m, v, rank in _leaves_with_rank(params, grads, state["m"],
                                               state["v"]):
         wd = cfg.weight_decay if rank >= 2 else 0.0
-        for ps, gs, ms, vs in _slabs(p, g, m, v):
-            upd(gs, ms, vs, ps, wd)
+        with _local_blocks(p, g, m, v, use_q8) as (pl, gl, ml, vl):
+            for ps, gs, ms, vs in _slabs(pl, gl, ml, vl):
+                upd(gs, ms, vs, ps, wd)
     state["count"] = count
     return params, state
+
+
+class _local_blocks:
+    """A leaf's param, grad and moments as the plain tensors to update in
+    place: themselves off a mesh; on a mesh, each rank's blocks, the grad
+    first brought to the param's placements (autograd may hand it back
+    partial or otherwise laid out).  An int8 moment keeps whole blocks of
+    ``int8_block`` along the last dim, whose scales ``s`` are not sharded
+    there (``state_axes``); so where the last dim is sharded, its blocks
+    would straddle the shards, and the leaf is gathered along the last
+    dim instead: every rank on those mesh dims updates the whole rows, and
+    the param and codes are cut back to its block on exit."""
+
+    def __init__(self, p, g, m, v, use_q8: bool):
+        self.p, self.g, self.m, self.v = p, g, m, v
+        self.use_q8 = use_q8
+        self.gather = None
+
+    def __enter__(self):
+        p, g, m, v = self.p, self.g, self.m, self.v
+        if not isinstance(p, DTensor):
+            return p, g, m, v
+        mesh = p.device_mesh
+        g = g.redistribute(mesh, p.placements)
+        last = p.dim() - 1
+        rows = tuple(Replicate() if pl.is_shard(last) else pl
+                     for pl in p.placements)
+        if not self.use_q8 or rows == p.placements or p.dim() == 0:
+            return tuple(_local(t) for t in (p, g, m, v))
+        self.gather = rows
+        self.rows = [t.redistribute(mesh, rows).to_local()
+                     for t in (p, g, m["q"], v["q"])]
+        pr, gr, mq, vq = self.rows
+        return (pr, gr, {"q": mq, "s": m["s"].to_local()},
+                {"q": vq, "s": v["s"].to_local()})
+
+    def __exit__(self, *exc):
+        if self.gather is None or exc[0] is not None:
+            return False
+        mesh = self.p.device_mesh
+        for whole, t in zip((self.rows[0], self.rows[2], self.rows[3]),
+                            (self.p, self.m["q"], self.v["q"])):
+            mine = DTensor.from_local(whole, mesh, self.gather,
+                                      run_check=False)
+            t.to_local().copy_(mine.redistribute(mesh, t.placements)
+                               .to_local())
+        return False
+
+
+def _local(t):
+    """A DTensor's local block (or an int8 moment's ``{"q", "s"}``)."""
+    if isinstance(t, dict):
+        return {k: v.to_local() for k, v in t.items()}
+    return t.to_local()

@@ -55,3 +55,34 @@ def compressed_psum(x: torch.Tensor, mesh: DeviceMesh, axis: str, *,
     contrib = q.to(dequant_dtype) * scale
     dist.all_reduce(contrib, group=mesh.get_group(axis))
     return contrib
+
+
+_GATHER_LIB = []     # the registration, kept alive once made
+
+
+def gloo_cuda_all_gather() -> None:
+    """Route the functional all-gather (what DTensor's redistributions
+    call) through c10d's ``all_gather_into_tensor`` for CUDA tensors.
+
+    On a ``gloo`` group given CUDA tensors (several ranks sharing one
+    card, where nccl cannot run), torch's functional
+    ``_c10d_functional.all_gather_into_tensor`` ends every rank with a
+    segmentation fault (torch 2.11 + CUDA 12.8 on an H100), while c10d's
+    own all-gather, and the functional all-reduce, reduce-scatter and
+    all-to-all, run.  The same bytes move, staged through the host as gloo
+    stages all its collectives.  Process-wide and idempotent: a rank on
+    gloo with CUDA DTensors calls it once, after joining its group."""
+    if _GATHER_LIB:
+        return
+    from torch.distributed import distributed_c10d as c10d
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+
+    def all_gather_into_tensor(x, group_size, group_name):
+        out = x.new_empty((group_size * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(),
+                                    group=c10d._resolve_process_group(
+                                        group_name))
+        return out
+
+    lib.impl("all_gather_into_tensor", all_gather_into_tensor, "CUDA")
+    _GATHER_LIB.append(lib)

@@ -20,7 +20,10 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import (
+    DTensor, Replicate, Shard, distribute_tensor,
+)
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.distributed.tensor.placement_types import Placement
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
@@ -89,24 +92,107 @@ def current_ctx() -> Optional[ShardingCtx]:
 
 @contextlib.contextmanager
 def sharding_ctx(ctx: Optional[ShardingCtx]):
+    """Make ``ctx`` the active context.  Under a context a plain tensor that
+    meets a DTensor in an op (an ``arange`` of positions, RoPE's
+    frequencies) counts as replicated, as a constant does under ``jit``
+    with shardings."""
     prev = current_ctx()
     _STATE.ctx = ctx
     try:
-        yield ctx
+        if ctx is None:
+            yield ctx
+        else:
+            with implicit_replication():
+                yield ctx
     finally:
         _STATE.ctx = prev
 
 
-def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
-    """Lay ``x`` out by the logical spec if a mesh context is active: a
-    DTensor is redistributed to its placements, a plain (per-rank) tensor
-    passes through as it is."""
+def axis_size(mesh: DeviceMesh, axes: MeshAxes) -> int:
+    """The number of shards a spec entry cuts a dim into."""
+    n = 1
+    for a in mesh_axes(axes):
+        n *= mesh.size(mesh.mesh_dim_names.index(a))
+    return n
+
+
+def fit(sh: NamedSharding, shape: Sequence[int]) -> NamedSharding:
+    """``sh`` with the mesh axes of every dim they do not divide dropped
+    (that dim replicated), as the reference's explicit shardings require;
+    DTensor would shard such a dim unevenly."""
+    parts = list(sh.spec) + [None] * (len(shape) - len(sh.spec))
+    changed = False
+    for i, axes in enumerate(parts):
+        n = axis_size(sh.mesh, axes)
+        if n > 1 and shape[i] % n != 0:
+            parts[i] = None
+            changed = True
+    return NamedSharding(sh.mesh, tuple(parts)) if changed else sh
+
+
+def layout(x: torch.Tensor, *logical: Optional[str]
+           ) -> Tuple[Placement, ...]:
+    """The placements ``shard(x, *logical)`` gives ``x`` under the active
+    context (axes that do not divide a dim dropped)."""
     ctx = current_ctx()
     if ctx is None:
-        return x
+        raise RuntimeError("no sharding context is active")
     if len(logical) != x.ndim:
         raise ValueError(f"rank mismatch: {logical} for shape "
                          f"{tuple(x.shape)}")
-    if isinstance(x, DTensor):
-        return x.redistribute(ctx.mesh, ctx.sharding(logical).placements)
+    return fit(ctx.sharding(logical), x.shape).placements
+
+
+def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """Lay ``x`` out by the logical spec if a mesh context is active: a
+    DTensor is redistributed to its placements (a mesh axis that does not
+    divide its dim is dropped, as ``fit`` does), and so is its gradient,
+    as the transpose of JAX's ``with_sharding_constraint`` constrains the
+    cotangent (a partial-sum grad is reduced here, before it meets ops
+    that cannot take one); a plain (per-rank) tensor passes through as it
+    is."""
+    ctx = current_ctx()
+    if ctx is None:
+        return x
+    placements = layout(x, *logical)
+    if not isinstance(x, DTensor):
+        return x
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Constrain.apply(x, placements)
+    if x.placements != placements:
+        return x.redistribute(ctx.mesh, placements)
     return x
+
+
+class _Constrain(torch.autograd.Function):
+    """Redistribute a DTensor and its gradient to the same placements."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(grad.device_mesh, ctx.placements), None
+
+
+def distribute(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """A tensor that every rank holds in full, as a DTensor laid out by
+    the logical spec under the active context: each rank keeps its own
+    block (a copy, no communication)."""
+    ctx = current_ctx()
+    if ctx is None:
+        return x
+    return to_dtensor(x, ctx.mesh, layout(x, *logical))
+
+
+def to_dtensor(x: torch.Tensor, mesh: DeviceMesh,
+               placements: Sequence[Placement]) -> DTensor:
+    """``x`` (the same full tensor on every rank, or a ``meta`` one) as a
+    DTensor whose local block is a copy of this rank's block of ``x``."""
+    local = distribute_tensor(x.detach(), mesh, list(placements),
+                              src_data_rank=None).to_local()
+    return DTensor.from_local(local.clone(), mesh, list(placements),
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())

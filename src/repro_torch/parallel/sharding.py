@@ -20,11 +20,12 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config.base import ShardingConfig
 from repro_torch.optim.adamw import tree_map
-from repro_torch.parallel.context import (
-    MeshAxes, NamedSharding, ShardingCtx, mesh_axes,
+from repro_torch.parallel.context import (  # noqa: F401  (axis_size)
+    NamedSharding, ShardingCtx, axis_size, fit, to_dtensor,
 )
 
 
@@ -98,14 +99,6 @@ def replicated(mesh: DeviceMesh) -> NamedSharding:
     return NamedSharding(mesh, ())
 
 
-def axis_size(mesh: DeviceMesh, axes: MeshAxes) -> int:
-    """The number of shards a spec entry cuts a dim into."""
-    n = 1
-    for a in mesh_axes(axes):
-        n *= mesh.size(mesh.mesh_dim_names.index(a))
-    return n
-
-
 def sanitize_shardings(shardings, shapes):
     """Drop mesh axes from dims they don't divide (the reference's rule for
     explicit in_shardings; DTensor would shard unevenly instead).
@@ -116,18 +109,45 @@ def sanitize_shardings(shardings, shapes):
     need ``.shape`` (tensors, ``meta`` ones included).
     """
     def fix(sh, leaf):
-        if not isinstance(sh, NamedSharding):
-            return sh
-        shape = tuple(leaf.shape)
-        parts = list(sh.spec) + [None] * (len(shape) - len(sh.spec))
-        changed = False
-        for i, axes in enumerate(parts):
-            n = axis_size(sh.mesh, axes)
-            if n > 1 and shape[i] % n != 0:
-                parts[i] = None
-                changed = True
-        if not changed:
-            return sh
-        return NamedSharding(sh.mesh, tuple(parts))
+        return fit(sh, tuple(leaf.shape)) if isinstance(sh, NamedSharding) \
+            else sh
 
     return tree_map(fix, shardings, shapes)
+
+
+def distribute_tree(tree: Any, shardings: Any) -> Any:
+    """The counterpart of ``jax.device_put(tree, shardings)``: each leaf (a
+    full tensor that every rank holds alike, or a ``meta`` one) as a
+    DTensor with its sharding's placements, after ``sanitize_shardings``;
+    each rank's block is a copy, so updating it in place leaves ``tree``
+    as it was."""
+    shardings = sanitize_shardings(shardings, tree)
+    return tree_map(lambda t, sh: to_dtensor(t, sh.mesh, sh.placements),
+                    tree, shardings)
+
+
+def full_tree(tree: Any) -> Any:
+    """Every DTensor leaf of ``tree`` gathered to a plain full tensor."""
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                    else t, tree)
+
+
+def check_distributed(tree: Any, what: str) -> None:
+    """Raise unless every leaf of ``tree`` is a DTensor: a sharded step
+    given a plain leaf would run it as a per-rank tensor, silently."""
+    for path, leaf in _paths(tree):
+        if not isinstance(leaf, DTensor):
+            raise TypeError(f"{what}{path} is a plain {type(leaf).__name__}, "
+                            "not a DTensor: lay the tree out with "
+                            "distribute_tree first")
+
+
+def _paths(tree: Any, prefix: str = ""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{prefix}[{k!r}]")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _paths(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree

@@ -1,0 +1,134 @@
+"""The sharded runs on the card: four ``gloo`` ranks sharing card 0 (CUDA
+tensors; ``gloo`` stages its collectives through the host), at tiny width,
+each held to the same run on one device on the card:
+
+- (a) qwen3-4b ``fsdp`` train step on (data 2, model 2), f32 on the
+  ``xla`` paths: the loss within 1e-5, the moments within 1e-4 of each
+  leaf's scale;
+- (b) qwen3-8b ``baseline`` prefill and 3 greedy decode ticks with flash
+  (``attention_impl="pallas"``) on each rank's local heads, f32 (the
+  kernel's ``f32`` route, one launch a layer a rank in the prefill):
+  logits within 1e-4 of their scale, the same tokens;
+- (c) qwen3-moe ``fsdp`` loss with flash and ``gmm`` on each rank's local
+  experts (``scan_impl="pallas"``, f32: 3 ``mma_sync`` launches a layer a
+  rank) within 1e-5 of the plain single-device loss.
+
+Skips without a CUDA card.  On the card (no JAX needed):
+
+    python -m pytest -m gpu tests/test_torch_sharded_gpu.py
+"""
+import pytest
+
+torch = pytest.importorskip("torch")  # the port's tests need PyTorch
+
+import _torch_dist as D
+import _torch_sharded_ranks as R
+from repro_torch.configs import get_tiny_config
+
+MESH = (2, 2)
+B, S, PROMPT, MAX_LEN, TICKS = 4, 16, 8, 16, 3
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import _build
+    for name in ("flash_attention", "gmm"):
+        _build.load(name)        # built once, before the ranks load it
+
+
+def _scaled(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def _batch(cfg, b, s, seed, targets=True):
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=g)
+    out = {"tokens": toks[:, :-1].contiguous(),
+           "positions": torch.arange(s).expand(b, s).contiguous()}
+    if targets:
+        out["targets"] = toks[:, 1:].contiguous()
+    return out
+
+
+def _params(cfg):
+    from repro_torch.models import init_params
+    return init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+def _on(tree, device):
+    from repro_torch.optim.adamw import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+@pytest.mark.gpu
+def test_sharded_train_step_on_the_card(tmp_path):
+    _card()
+    from repro_torch.config import RunConfig, ShapeConfig, ShardingConfig
+    from repro_torch.models import loss_fn
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import make_opt_state, make_train_step
+    cfg = get_tiny_config("qwen3-4b").replace(dtype="float32")
+    params, batch = _params(cfg), _batch(cfg, B, S, 1)
+    ranks = D.run_ranks(R.train_step_rank, 4, tmp_path, "cuda", cfg, MESH,
+                        params, batch)
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", "train", S, B),
+                    sharding=ShardingConfig(policy="fsdp"))
+    p, b = _on(params, "cuda"), _on(batch, "cuda")
+    with torch.no_grad():
+        loss = float(loss_fn(cfg, p, b)[0])
+    opt = make_opt_state(run, p)
+    make_train_step(run)(p, opt, b)
+    for r in ranks:
+        assert abs(float(r["loss"]) - loss) <= 1e-5 * abs(loss)
+        assert r["in_place"] and r["kept"]
+        for mom in ("m", "v"):
+            for got, want in zip(tree_leaves(r[mom]), tree_leaves(opt[mom])):
+                assert _scaled(got, want.cpu()) <= 1e-4, mom
+
+
+@pytest.mark.gpu
+def test_sharded_decode_with_flash_on_the_card(tmp_path):
+    _card()
+    from repro_torch.models import decode_step, prefill
+    cfg = get_tiny_config("qwen3-8b").replace(dtype="float32",
+                                              attention_impl="pallas")
+    params = _params(cfg)
+    prompt = _batch(cfg, B, PROMPT, 2, targets=False)
+    ranks = D.run_ranks(R.decode_rank, 4, tmp_path, "cuda", cfg, MESH,
+                        params, prompt, MAX_LEN, TICKS)
+    p, b = _on(params, "cuda"), _on(prompt, "cuda")
+    want = []
+    with torch.no_grad():
+        lg, cache = prefill(cfg, p, b, MAX_LEN)
+        for _ in range(TICKS):
+            want.append(lg.cpu())
+            tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            lg, cache = decode_step(cfg, p, tok, cache)
+        want.append(lg.cpu())
+    for r in ranks:
+        assert r["prefill_launches"]["flash"]["f32"] == cfg.num_layers
+        for got, w in zip(r["logits"], want):
+            assert _scaled(got, w) <= 1e-4
+        assert [t.flatten().tolist() for t in r["tokens"]] == \
+            [w[:, -1].argmax(-1).tolist() for w in want[:-1]]
+
+
+@pytest.mark.gpu
+def test_sharded_moe_loss_with_gmm_on_the_card(tmp_path):
+    _card()
+    from repro_torch.models import loss_fn
+    cfg = get_tiny_config("qwen3-moe-30b-a3b").replace(dtype="float32")
+    params, batch = _params(cfg), _batch(cfg, B, S, 3)
+    kern = cfg.replace(attention_impl="pallas", scan_impl="pallas")
+    ranks = D.run_ranks(R.loss_rank, 4, tmp_path, "cuda", {"pallas": kern},
+                        MESH, params, batch)
+    with torch.no_grad():
+        want = float(loss_fn(cfg, _on(params, "cuda"),
+                             _on(batch, "cuda"))[0])
+    for r in ranks:
+        got = r["pallas"]
+        assert abs(float(got["loss"]) - want) <= 1e-5 * abs(want)
+        assert got["launches"]["gmm"]["mma_sync"] == 3 * cfg.num_layers
+        assert got["launches"]["flash"]["f32"] == cfg.num_layers
