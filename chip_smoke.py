@@ -171,16 +171,19 @@ Phases, each of which raises on failure (exit code != 0):
                factor 32 against ``ep_moe_plain`` and ``moe_apply`` (1e-5
                scaled); the gmm kernel at a rank's received rows, timed
                beside torch.bmm; a failed or hung rank fails the phase;
- 20. sharded - the dense and MoE families on a (data 2, model 2)
-               DeviceMesh (``parallel/``, DTensor), 4 ranks spawned as in
-               phase 19 (one card: all on card 0, gloo staging the
-               collectives through the host; four cards: nccl, one a
-               rank), every sub-phase at full width and 2 layers, the
-               params seeded in the parent and shared; first flash and
-               gmm at the local shapes the ranks give them, against their
-               plain versions and timed; then, each held to the same run
-               on one device on the card: (a) qwen3-4b ``fsdp`` train
-               step, f32, 2 x 512 tokens, fp32 moments: the loss (1e-5)
+ 20. sharded - the dense, MoE, enc-dec and VLM families on a (data 2,
+               model 2) DeviceMesh (``parallel/``, DTensor), 4 ranks
+               spawned as in phase 19 (one card: all on card 0, gloo
+               staging the collectives through the host; four cards:
+               nccl, one a rank), in three rounds of rank processes
+               ((a)-(c), (d), (e): the card holds one round's params at a
+               time; each round's peak on the card printed), every
+               sub-phase at full width and 2 layers (2 + 2 for the
+               enc-dec), the params seeded in the parent and shared;
+               first flash and gmm at the local shapes the ranks give
+               them, against their plain versions and timed; then, each
+               held to the same run on one device on the card: (a)
+               qwen3-4b ``fsdp`` train step, f32, 2 x 512 tokens, fp32 moments: the loss (1e-5)
                and every moment leaf after one step (1e-4 of its scale),
                the step's all-gathers and reduce-scatters (counts from
                ``CommDebugMode``, bytes from ``launch/op_analysis.py``),
@@ -194,7 +197,24 @@ Phases, each of which raises on failure (exit code != 0):
                64 experts, bf16 (6 gmm and 2 flash ``wgmma`` launches a
                rank; 1e-2) and f32 (6 ``mma_sync``; 1e-5 of the plain
                loss, every layer's kept mask equal, any difference
-               printed); a failed or hung rank fails the phase;
+               printed); (d) seamless-m4t-medium: an ``fsdp`` train step
+               in f32 with 2 microbatches (the reference's global row
+               blocks; 4 rows of 512 frames and 512 text tokens, targets
+               masked unevenly) held to the one-device 2-microbatch step
+               (loss, ce, z, aux 1e-5, grad norm 1e-5, the moments 1e-4
+               of each leaf's scale), then ``baseline`` prefill of 4 x 1024
+               frames with 64-token prompts and 16 greedy ticks, bf16 and
+               f32, flash on each rank's 8 heads of 64: 6 launches a rank
+               in the prefill (2 encoder, 2 decoder self, 2 cross) and 2
+               a tick (cross, one query row), ``wgmma`` in bf16, ``f32``
+               in f32, held as (b); (e) qwen2-vl-72b ``baseline`` (TP
+               only: ``fsdp`` would gather ~1.8 GB of f32 weights a rank
+               a layer a tick through the host) prefill of 4 sequences of
+               128 patches of 8192 features and 384 text tokens, M-RoPE
+               positions [3, 4, 512], and 16 greedy ticks, bf16 then f32,
+               held as (b), flash on each rank's 32 q / 4 kv heads (2
+               ``wgmma`` launches a rank in the bf16 prefill, 2 ``f32`` in
+               the f32 one); a failed or hung rank fails the phase;
 (every serving run checks each admission's splice of every cache entry)
 then prints a JSON line of kernel numbers and, last, the JSON result line.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -202,6 +222,7 @@ Imports nothing of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -273,7 +294,13 @@ SHARD_SERVE_ARCH = "qwen3-8b"
 SHARD_PROMPTS, SHARD_PROMPT_LEN, SHARD_TICKS = 4, 512, 16
 SHARD_MOE_ARCH = "qwen3-moe-30b-a3b"
 SHARD_MOE_BATCH, SHARD_MOE_SEQ = 2, 512
-SHARD_LIMIT = 400          # seconds phase 20's ranks may take
+SHARD_ENCDEC_ARCH = "seamless-m4t-medium"
+SHARD_ENCDEC_BATCH, SHARD_ENCDEC_SEQ = 4, 512   # train: frames, text a row
+SHARD_FRAMES, SHARD_ENCDEC_PROMPT = 1024, 64     # serving: frames, text
+SHARD_VLM_ARCH = "qwen2-vl-72b"
+SHARD_VLM_PROMPTS, SHARD_VLM_SEQ = 4, 512        # 128 patches + 384 text
+SHARD_MICRO = 2            # (d)'s train step: the reference's microbatches
+SHARD_LIMIT = 400          # seconds a round of phase 20's ranks may take
 EP_PG_TIMEOUT = 120        # seconds a collective may wait for a peer
 
 
@@ -2681,6 +2708,8 @@ def ep_rank(rank: int, job: dict, results) -> None:
             res = ep_rank_work(torch, rank, dev, job)
         finally:
             dist.destroy_process_group()
+            job.clear()       # the parent's shared tensors: as sharded_rank
+            gc.collect()
         results.put((rank, res))
     except BaseException:
         results.put((rank, {"error": traceback.format_exc()}))
@@ -3038,51 +3067,80 @@ def ep_moe_phase(torch, card: str) -> dict:
     return res
 
 
+def shard_flash_case(torch, fa, what, B, Hq, Hkv, Sq, Skv, D, causal):
+    """Flash at one rank's block, bf16 on the ``wgmma`` route: held to the
+    plain version in f32 (relative RMS, ``RMS_TOL``) and timed beside the
+    plain version, SDPA (the same function: ``is_causal`` where causal,
+    Sq = Skv) and the bound of this work."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    q = torch.randn(B, Sq, Hq, D, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(B, Skv, Hkv, D, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, Skv, Hkv, D, generator=gen, device="cuda").bfloat16()
+    route = fa.route(q.dtype, D)
+    n0 = fa.flash_attention.route_launches[route]
+    out = kops.flash_attention(q, k, v, causal=causal)
+    if route != "wgmma" or fa.flash_attention.route_launches[route] != n0 + 1:
+        raise AssertionError(f"flash {what} took {route}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    want32 = fa.flash_attention_plain(qt.float(), kt.float(), vt.float(),
+                                      causal=causal).transpose(1, 2)
+    ferr = rms_rel_err(torch, out, want32)
+    if ferr > RMS_TOL["bfloat16"] or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"flash {what}: rms {ferr}")
+    bound, by = attention_bound(B, Hq, Hkv, Sq, Skv, D, causal, 0,
+                                "bfloat16")
+    c = dict(case=f"flash {what}", B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv,
+             D=D, causal=causal, route=route, rms_rel_err_vs_f32=ferr,
+             max_abs_err=float((out.float() - want32).abs().max()),
+             ms=cuda_ms(torch, lambda: kops.flash_attention(
+                 q, k, v, causal=causal), iters=20),
+             plain_ms=cuda_ms(torch, lambda: fa.flash_attention_plain(
+                 qt, kt, vt, causal=causal), iters=3, warmup=1),
+             library_ms=cuda_ms(
+                 torch, lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, is_causal=causal, enable_gqa=True),
+                 iters=20),
+             bound_ms=bound, bound_by=by)
+    print("kernel case " + json.dumps(c), flush=True)
+    return c
+
+
 def shard_kernel_cases(torch, fa, gm) -> dict:
     """Flash and gmm at the local shapes phase 20's ranks give them: flash
     on one rank's prefill block of qwen3-8b (2 prompts of 512 tokens, 16 q
-    and 4 kv heads, D 128, bf16, causal; the ``wgmma`` route) and gmm on
-    one rank's 64 of qwen3-moe's 128 experts, each with the C + 1 = 81
-    slots of a 2 x 512-token chunk (K 2048 -> N 768 and back, bf16).  Each
-    against its plain version in f32 (relative RMS, ``RMS_TOL``), timed
-    beside the plain version, one PyTorch call (SDPA; ``torch.bmm`` over
-    the equal groups) and the bound of this work."""
-    import torch.nn.functional as F
+    and 4 kv heads, D 128, causal), of seamless-m4t-medium (2 rows, 8 of
+    its 16 heads of 64: the encoder over 1024 frames, non-causal; the
+    decoder's self-attention over a 64-token prompt, causal; its
+    cross-attention, 64 queries against the 1024 frames) and of
+    qwen2-vl-72b (2 sequences of 512 positions, 32 q and 4 kv heads of
+    128, causal), all bf16 on the ``wgmma`` route; gmm on one rank's 64 of
+    qwen3-moe's 128 experts, each with the C + 1 = 81 slots of a 2 x
+    512-token chunk (K 2048 -> N 768 and back, bf16).  Each against its
+    plain version in f32 (relative RMS, ``RMS_TOL``), timed beside the
+    plain version, one PyTorch call (SDPA; ``torch.bmm`` over the equal
+    groups) and the bound of this work."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops as kops
     from repro_torch.models.moe import _capacity
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    B, S, Hq, Hkv, D = SHARD_PROMPTS // SHARD_MESH[0], SHARD_PROMPT_LEN, \
-        32 // SHARD_MESH[1], 8 // SHARD_MESH[1], 128
-    q = torch.randn(B, S, Hq, D, generator=gen, device="cuda").bfloat16()
-    k = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").bfloat16()
-    v = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").bfloat16()
-    route = fa.route(q.dtype, D)
-    n0 = fa.flash_attention.route_launches[route]
-    out = kops.flash_attention(q, k, v, causal=True)
-    if route != "wgmma" or fa.flash_attention.route_launches[route] != n0 + 1:
-        raise AssertionError(f"flash at the rank's shape took {route}")
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    want32 = fa.flash_attention_plain(qt.float(), kt.float(), vt.float(),
-                                      causal=True).transpose(1, 2)
-    ferr = rms_rel_err(torch, out, want32)
-    if ferr > RMS_TOL["bfloat16"] or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"flash at the rank's shape: rms {ferr}")
-    bound, by = attention_bound(B, Hq, Hkv, S, S, D, True, 0, "bfloat16")
-    flash = dict(case="flash rank prefill", B=B, Hq=Hq, Hkv=Hkv, S=S, D=D,
-                 route=route, rms_rel_err_vs_f32=ferr,
-                 max_abs_err=float((out.float() - want32).abs().max()),
-                 ms=cuda_ms(torch, lambda: kops.flash_attention(
-                     q, k, v, causal=True), iters=20),
-                 plain_ms=cuda_ms(torch, lambda: fa.flash_attention_plain(
-                     qt, kt, vt, causal=True), iters=3, warmup=1),
-                 library_ms=cuda_ms(
-                     torch, lambda: F.scaled_dot_product_attention(
-                         qt, kt, vt, is_causal=True, enable_gqa=True),
-                     iters=20),
-                 bound_ms=bound, bound_by=by)
-    print("kernel case flash " + json.dumps(flash), flush=True)
+    data, model = SHARD_MESH
+    rows, F_, P = SHARD_ENCDEC_BATCH // data, SHARD_FRAMES, \
+        SHARD_ENCDEC_PROMPT
+    flash = [shard_flash_case(torch, fa, what, *shape) for what, shape in (
+        ("rank prefill", (SHARD_PROMPTS // data, 32 // model, 8 // model,
+                          SHARD_PROMPT_LEN, SHARD_PROMPT_LEN, 128, True)),
+        ("rank encoder", (rows, 16 // model, 16 // model, F_, F_, 64,
+                          False)),
+        ("rank decoder self", (rows, 16 // model, 16 // model, P, P, 64,
+                               True)),
+        ("rank cross", (rows, 16 // model, 16 // model, P, F_, 64, False)),
+        ("rank vlm prefill", (SHARD_VLM_PROMPTS // data, 64 // model,
+                              8 // model, SHARD_VLM_SEQ, SHARD_VLM_SEQ, 128,
+                              True)))]
     m = get_config(SHARD_MOE_ARCH).moe
     G = m.num_experts // SHARD_MESH[1]
     rows = _capacity(m, SHARD_MOE_BATCH * SHARD_MOE_SEQ) + 1
@@ -3194,6 +3252,7 @@ def shard_references(torch) -> dict:
             toks, steps, _, _ = decode_ticks(torch, cfg, params, lg, cache,
                                              SHARD_TICKS)
         ref[f"b_{dt}"] = dict(cfg=cfg, prompt=prompt,
+                              max_len=SHARD_PROMPT_LEN + SHARD_TICKS + 1,
                               prefill=lg[:, -1].float().clone(),
                               steps=torch.stack(steps), tokens=toks)
         del cache, params
@@ -3223,6 +3282,91 @@ def shard_references(torch) -> dict:
     return ref
 
 
+def serve_references(torch, cfg, params, prompt, max_len: int) -> dict:
+    """Prefill of ``prompt`` and SHARD_TICKS greedy decode steps on one
+    device, bf16 then f32 (``cfg`` and ``params`` in f32; the bf16 run
+    takes a cast of them, dropped after it), for ``_sharded_serve``."""
+    from repro_torch.models import prefill
+    from repro_torch.optim.adamw import tree_map
+    ref = {}
+    for dt in ("bfloat16", "float32"):
+        c = cfg.replace(dtype=dt, param_dtype=dt, attention_impl="pallas")
+        p = params if dt == "float32" else tree_map(
+            lambda t: t.to(torch.bfloat16), params)
+        pr = dict(prompt, frontend=prompt["frontend"].to(getattr(torch, dt)))
+        with torch.inference_mode():
+            lg, cache = prefill(c, p, pr, max_len)
+            toks, steps, _, _ = decode_ticks(torch, c, p, lg, cache,
+                                             SHARD_TICKS)
+        ref[dt] = dict(cfg=c, prompt=pr, max_len=max_len,
+                       prefill=lg[:, -1].float().clone(),
+                       steps=torch.stack(steps), tokens=toks)
+        del cache, p
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ref
+
+
+def encdec_references(torch) -> dict:
+    """Phase 20's (d) on one device on the card, on the seeded params the
+    ranks get: seamless-m4t-medium at 2 + 2 layers, its loss and a
+    2-microbatch train step (f32, plain attention), then its prefill and
+    SHARD_TICKS greedy decode steps on flash, bf16 and f32."""
+    from repro_torch.config import RunConfig, ShapeConfig, ShardingConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import loss_fn
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import make_opt_state, make_train_step
+    L = SHARD_LAYERS
+    ref = {}
+    cfg = get_config(SHARD_ENCDEC_ARCH).replace(
+        encoder_layers=L, decoder_layers=L, num_layers=2 * L,
+        dtype="float32", param_dtype="float32", attention_impl="xla")
+    params = seeded_params(torch, cfg)
+    batch = scoring_batch(torch, cfg, SHARD_ENCDEC_BATCH, SHARD_ENCDEC_SEQ)
+    targets = batch["targets"].clone()
+    targets[0, 1:] = -1               # rows masked unevenly: the microbatch
+    targets[1, :SHARD_ENCDEC_SEQ // 2] = -1   # split shows in every metric
+    batch["targets"] = targets
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "smoke", "train", SHARD_ENCDEC_SEQ, SHARD_ENCDEC_BATCH),
+        sharding=ShardingConfig(policy="fsdp"), seed=SEED,
+        microbatches=SHARD_MICRO)
+    with torch.no_grad():
+        ref["d_loss"] = float(loss_fn(cfg, params, batch)[0])
+    opt = make_opt_state(run, params)
+    _, _, metrics = make_train_step(run)(params, opt, batch)
+    ref["d_metrics"] = {k: float(v) for k, v in metrics.items()}
+    ref["d_m"], ref["d_v"] = tree_leaves(opt["m"]), tree_leaves(opt["v"])
+    ref["d_run"], ref["d_cfg"], ref["d_batch"] = run, cfg, batch
+    ref["d_params"] = params          # lr_at(0) is 0: the step moved none
+    del opt
+    serve = scoring_batch(torch, cfg, SHARD_ENCDEC_BATCH, SHARD_FRAMES)
+    for dt, r in serve_references(
+            torch, cfg, params, prompt_of(serve, SHARD_ENCDEC_PROMPT),
+            SHARD_ENCDEC_PROMPT + SHARD_TICKS + 1).items():
+        ref[f"d_{dt}"] = r
+    torch.cuda.synchronize()
+    return ref
+
+
+def vlm_references(torch) -> dict:
+    """Phase 20's (e) on one device on the card, on the seeded params the
+    ranks get: qwen2-vl-72b at 2 layers, prefill and SHARD_TICKS greedy
+    decode steps on flash, bf16 and f32."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SHARD_VLM_ARCH).replace(
+        num_layers=SHARD_LAYERS, dtype="float32", param_dtype="float32")
+    params = seeded_params(torch, cfg)
+    b = scoring_batch(torch, cfg, SHARD_VLM_PROMPTS, SHARD_VLM_SEQ)
+    prompt = {k: b[k] for k in ("tokens", "positions", "frontend")}
+    ref = {f"e_{dt}": r for dt, r in serve_references(
+        torch, cfg, params, prompt, SHARD_VLM_SEQ + SHARD_TICKS + 1).items()}
+    ref["e_params"] = params
+    torch.cuda.synchronize()
+    return ref
+
+
 def sharded_rank(rank: int, job: dict, results) -> None:
     """One of phase 20's ranks, in its own process: joins the group, then
     ``sharded_rank_work``; its result (or its traceback) goes to
@@ -3246,6 +3390,11 @@ def sharded_rank(rank: int, job: dict, results) -> None:
             res = sharded_rank_work(torch, rank, dev, job)
         finally:
             dist.destroy_process_group()
+            # drop this rank's handles on the parent's shared tensors now:
+            # a handle still open when the process exits keeps the parent's
+            # block in use past its ipc_collect, into the next round
+            job.clear()
+            gc.collect()
         results.put((rank, res))
     except BaseException:
         results.put((rank, {"error": traceback.format_exc()}))
@@ -3268,43 +3417,131 @@ def _scaled(a, b) -> float:
                  / b.float().abs().max().clamp_min(1e-30))
 
 
-def sharded_rank_work(torch, rank: int, dev, job: dict) -> dict:
-    """Phase 20's sub-phases (a)-(c) on this rank; see the module
-    docstring.  Each check's error is measured here against the parent's
-    single-device result (shared tensors); the parent holds them to the
-    tolerances."""
-    from torch.distributed.tensor.debug import CommDebugMode
-    from repro_torch.config import ShardingConfig
+def _sync_ms(torch, fn):
+    """(fn(), host ms of it, the card synchronised before and after)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _reset_launches():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gm
-    from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.op_analysis import OpAnalysis
-    from repro_torch.models import decode_step, loss_fn, param_axes, prefill
-    from repro_torch.models import moe as moe_mod
-    from repro_torch.optim.adamw import tree_leaves, tree_map
+    fa.flash_attention.route_launches = dict.fromkeys(fa.ROUTES, 0)
+    gm.gmm.route_launches = dict.fromkeys(gm.ROUTES, 0)
+
+
+def _launches() -> dict:
+    """This rank's kernel launches by route since ``_reset_launches``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gmm as gm
+    return dict(flash=dict(fa.flash_attention.route_launches),
+                gmm=dict(gm.gmm.route_launches))
+
+
+def _distribute_as(tree, shardings, dtype):
+    """``distribute_tree`` of ``tree`` with each rank's block cast to
+    ``dtype`` a leaf at a time, so a rank never holds its whole f32 block
+    beside the cast."""
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.parallel.context import to_dtensor
+    from repro_torch.parallel.sharding import sanitize_shardings
+    return tree_map(lambda t, sh: to_dtensor(t, sh.mesh, sh.placements)
+                    .to(dtype), tree, sanitize_shardings(shardings, tree))
+
+
+def _rel(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def _sharded_serve(torch, mesh, ref: dict, params, policy: str) -> dict:
+    """``baseline``/``fsdp`` prefill of ``ref``'s prompt and SHARD_TICKS
+    decode ticks on this rank, in ``ref``'s config (its dtype): bf16 is fed
+    the single-device run's tokens, so a rounding flip cannot fork the
+    sequences, f32 feeds its own.  The errors against the single-device
+    logits (f32: max over the scale; bf16: relative RMS), ms of the
+    prefill and of each tick, the prefill's and the ticks' kernel
+    launches, and whether the greedy tokens are the single-device run's."""
+    from repro_torch.config import ShardingConfig
+    from repro_torch.models import decode_step, param_axes, prefill
     from repro_torch.parallel.context import distribute, sharding_ctx
     from repro_torch.parallel.sharding import (
         batch_shardings, distribute_tree, make_ctx, tree_shardings,
     )
-    from repro_torch.train import make_opt_state, make_train_step
+    cfg = ref["cfg"]
+    dt = getattr(torch, cfg.dtype)
+    ctx = make_ctx(mesh, ShardingConfig(policy=policy), decode=True)
+    pd = _distribute_as(params, tree_shardings(ctx, param_axes(cfg)), dt)
+    bd = distribute_tree(ref["prompt"], batch_shardings(ctx, ref["prompt"]))
+    feed, f32 = ref["tokens"], cfg.dtype == "float32"
 
-    def sync_ms(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t) * 1e3
+    def err(got, want):
+        if f32:
+            return _scaled(got, want)
+        return float(torch.linalg.vector_norm(got - want)
+                     / torch.linalg.vector_norm(want))
 
-    def reset():
-        fa.flash_attention.route_launches = dict.fromkeys(fa.ROUTES, 0)
-        gm.gmm.route_launches = dict.fromkeys(gm.ROUTES, 0)
+    with sharding_ctx(ctx), torch.no_grad():
+        _reset_launches()
+        (lg, cache), pre_ms = _sync_ms(torch, lambda: prefill(
+            cfg, pd, bd, ref["max_len"]))
+        pre_launch = _launches()
+        first = lg.full_tensor()[:, -1].float()
+        toks = [first.argmax(-1, keepdim=True)]
+        errs, tick_ms = [], []
+        _reset_launches()
+        for i in range(SHARD_TICKS):
+            tok = toks[-1] if f32 else feed[:, i:i + 1]
+            (lg, cache), ms = _sync_ms(torch, lambda: decode_step(
+                cfg, pd, distribute(tok.to(torch.int32), "batch", None),
+                cache))
+            tick_ms.append(ms)
+            full = lg.full_tensor()[:, 0].float()
+            errs.append(err(full, ref["steps"][i]))
+            toks.append(full.argmax(-1, keepdim=True))
+        tick_launch = _launches()
+    out = dict(prefill_ms=pre_ms, decode_ms=tick_ms, launches=pre_launch,
+               tick_launches=tick_launch,
+               prefill_err=err(first, ref["prefill"]), step_errs=errs,
+               tokens_equal=bool(torch.equal(torch.cat(toks, 1).cpu(),
+                                             ref["tokens"].cpu())))
+    del pd, bd, cache
+    torch.cuda.empty_cache()
+    return out
 
-    def launches():
-        return dict(flash=dict(fa.flash_attention.route_launches),
-                    gmm=dict(gm.gmm.route_launches))
 
+def sharded_rank_work(torch, rank: int, dev, job: dict) -> dict:
+    """Phase 20's sub-phases on this rank, those of round ``job["round"]``
+    (``SHARD_ROUNDS``); see the module docstring.  Each check's error is
+    measured here against the parent's single-device result (shared
+    tensors); the parent holds them to the tolerances."""
+    from repro_torch.launch.mesh import make_test_mesh
     mesh = make_test_mesh(*SHARD_MESH, device_type="cuda")
     res = dict(rank=rank, coord=mesh.get_coordinate(), device=str(dev))
+    res.update(SHARD_ROUNDS[job["round"]][2](torch, mesh, dev, job))
+    res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return res
+
+
+def dense_moe_rank_work(torch, mesh, dev, job: dict) -> dict:
+    """(a) the qwen3-4b ``fsdp`` train step, (b) qwen3-8b serving, (c) the
+    qwen3-moe loss, on this rank."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.config import ShardingConfig
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.models import loss_fn, param_axes
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel.context import sharding_ctx
+    from repro_torch.parallel.sharding import (
+        batch_shardings, distribute_tree, make_ctx, tree_shardings,
+    )
+    from repro_torch.train import make_opt_state, make_train_step
+    sync_ms = functools.partial(_sync_ms, torch)
+    reset, launches = _reset_launches, _launches
+    res = {}
 
     # (a) qwen3-4b train step, fsdp
     run, cfg = job["a_run"], job["a_cfg"]
@@ -3343,54 +3580,17 @@ def sharded_rank_work(torch, rank: int, dev, job: dict) -> dict:
 
     # (b) qwen3-8b prefill + decode, baseline, bf16 then f32
     for dt in ("bfloat16", "float32"):
-        ref = job[f"b_{dt}"]
-        cfg = ref["cfg"]
-        ctx = make_ctx(mesh, ShardingConfig(policy="baseline"), decode=True)
-        pd = tree_map(lambda t: t.to(getattr(torch, dt)), distribute_tree(
-            job["b_params"], tree_shardings(ctx, param_axes(cfg))))
-        bd = distribute_tree(ref["prompt"],
-                             batch_shardings(ctx, ref["prompt"]))
-        feed = ref["tokens"]
-        with sharding_ctx(ctx), torch.no_grad():
-            reset()
-            (lg, cache), pre_ms = sync_ms(lambda: prefill(
-                cfg, pd, bd, SHARD_PROMPT_LEN + SHARD_TICKS + 1))
-            pre_launch = launches()
-            first = lg.full_tensor()[:, -1].float()
-            toks = [first.argmax(-1, keepdim=True)]
-            errs, tick_ms = [], []
-            for i in range(SHARD_TICKS):
-                # bf16 is fed the single-device run's tokens, so a rounding
-                # flip cannot fork the sequences; f32 feeds its own
-                tok = feed[:, i:i + 1] if dt == "bfloat16" else toks[-1]
-                (lg, cache), ms = sync_ms(lambda: decode_step(
-                    cfg, pd, distribute(tok.to(torch.int32), "batch", None),
-                    cache))
-                tick_ms.append(ms)
-                full = lg.full_tensor()[:, 0].float()
-                want = ref["steps"][i]
-                errs.append(_scaled(full, want) if dt == "float32"
-                            else float(torch.linalg.vector_norm(full - want)
-                                       / torch.linalg.vector_norm(want)))
-                toks.append(full.argmax(-1, keepdim=True))
-        pre_err = (_scaled(first, ref["prefill"]) if dt == "float32" else
-                   float(torch.linalg.vector_norm(first - ref["prefill"])
-                         / torch.linalg.vector_norm(ref["prefill"])))
-        res[f"b_{dt}"] = dict(
-            prefill_ms=pre_ms, decode_ms=tick_ms, launches=pre_launch,
-            prefill_err=pre_err, step_errs=errs,
-            tokens_equal=bool(torch.equal(torch.cat(toks, 1).cpu(),
-                                          ref["tokens"].cpu())))
-        del pd, bd, cache
-        torch.cuda.empty_cache()
+        res[f"b_{dt}"] = _sharded_serve(torch, mesh, job[f"b_{dt}"],
+                                        job["b_params"], "baseline")
 
     # (c) qwen3-moe loss, fsdp, flash and gmm on local heads and experts
     for dt in ("bfloat16", "float32"):
         ref = job[f"c_{dt}"]
         cfg = ref["cfg"].replace(attention_impl="pallas", scan_impl="pallas")
         ctx = make_ctx(mesh, ShardingConfig(policy="fsdp"))
-        pd = tree_map(lambda t: t.to(getattr(torch, dt)), distribute_tree(
-            job["c_params"], tree_shardings(ctx, param_axes(cfg))))
+        pd = _distribute_as(job["c_params"],
+                            tree_shardings(ctx, param_axes(cfg)),
+                            getattr(torch, dt))
         bd = distribute_tree(ref["batch"], batch_shardings(ctx, ref["batch"]))
         routes = []
         real = _recording_routes(moe_mod, routes)
@@ -3415,8 +3615,95 @@ def sharded_rank_work(torch, rank: int, dev, job: dict) -> dict:
                               min_gap=min(float(g.min()) for g in ref["gap"]))
         del pd, bd
         torch.cuda.empty_cache()
-    res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return res
+
+
+def encdec_rank_work(torch, mesh, dev, job: dict) -> dict:
+    """(d) seamless-m4t-medium's 2-microbatch ``fsdp`` train step and its
+    serving, on this rank."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.models import loss_fn, param_axes
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel.context import sharding_ctx
+    from repro_torch.parallel.sharding import (
+        batch_shardings, distribute_tree, make_ctx, tree_shardings,
+    )
+    from repro_torch.train import make_opt_state, make_train_step
+    res = {}
+    # (d) seamless-m4t-medium: the 2-microbatch train step, fsdp
+    run, cfg = job["d_run"], job["d_cfg"]
+    ctx = make_ctx(mesh, run.sharding)
+    p_axes = param_axes(cfg)
+    pd = distribute_tree(job["d_params"], tree_shardings(ctx, p_axes))
+    od = make_opt_state(run, pd)
+    bd = distribute_tree(job["d_batch"], batch_shardings(ctx, job["d_batch"]))
+    step = make_train_step(run)
+    comm, oa = CommDebugMode(), OpAnalysis()
+    with sharding_ctx(ctx):
+        with torch.no_grad():
+            loss = float(loss_fn(cfg, pd, bd)[0].full_tensor())
+        with comm, oa:
+            (_, _, metrics), step_ms = _sync_ms(torch, lambda: step(pd, od,
+                                                                   bd))
+        m_err = max(_block_err(g, w) for g, w in zip(
+            tree_leaves(od["m"]), job["d_m"]))
+        v_err = max(_block_err(g, w) for g, w in zip(
+            tree_leaves(od["v"]), job["d_v"]))
+    rec = oa.result()
+    res["d"] = dict(
+        loss_err=_rel(loss, job["d_loss"]),
+        metric_errs={k: _rel(float(metrics[k]), job["d_metrics"][k])
+                     for k in ("loss", "grad_norm", "ce", "z", "aux")},
+        m_err=m_err, v_err=v_err, step_ms=step_ms,
+        comm_counts={str(k).split(".")[-1]: v
+                     for k, v in comm.get_comm_counts().items()},
+        coll_bytes={k: rec[f"coll_{k}"] for k in (
+            "all-gather", "reduce-scatter", "all-reduce", "all-to-all")},
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del pd, od, bd, step, oa, metrics
+    torch.cuda.empty_cache()
+    for dt in ("bfloat16", "float32"):
+        res[f"d_{dt}"] = _sharded_serve(torch, mesh, job[f"d_{dt}"],
+                                        job["d_params"], "baseline")
+    return res
+
+
+def vlm_rank_work(torch, mesh, dev, job: dict) -> dict:
+    """(e) qwen2-vl-72b's ``baseline`` serving on this rank, bf16 then f32
+    (the bf16 blocks dropped before the f32 ones are made)."""
+    return {f"e_{dt}": _sharded_serve(torch, mesh, job[f"e_{dt}"],
+                                      job["e_params"], "baseline")
+            for dt in ("bfloat16", "float32")}
+
+
+class CardPeak:
+    """While entered, samples the bytes in use on every card (by all
+    processes: the ranks and this one) every ``period`` seconds; ``gb``:
+    the most seen on each card."""
+
+    def __init__(self, torch, period: float = 0.2):
+        import threading
+        self.torch, self.period = torch, period
+        self.gb = [0.0] * torch.cuda.device_count()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while True:
+            for i in range(len(self.gb)):
+                free, total = self.torch.cuda.mem_get_info(i)
+                self.gb[i] = max(self.gb[i], (total - free) / 1e9)
+            if self._stop.wait(self.period):
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
 
 
 def run_shard_ranks(torch, job: dict) -> list:
@@ -3459,11 +3746,61 @@ def run_shard_ranks(torch, job: dict) -> list:
     return [got[r] for r in range(SHARD_RANKS)]
 
 
-def sharded_phase(torch, card: str) -> dict:
-    """Phase 20: the dense and MoE families sharded on a (data 2, model 2)
-    DeviceMesh, each sub-phase held to the same run on one device; see the
-    module docstring."""
+# phase 20's rounds of rank processes: (what, the parent's single-device
+# references, a rank's work); one round at a time, so the card holds one
+# round's params
+SHARD_ROUNDS = {1: ("(a)-(c)", shard_references, dense_moe_rank_work),
+                2: ("(d)", encdec_references, encdec_rank_work),
+                3: ("(e)", vlm_references, vlm_rank_work)}
+
+
+def shard_round(torch, job: dict, backend: str, what: str):
+    """One round of phase 20's rank processes on ``job``: (the ranks'
+    results, the round's seconds spawn to exit, the most GB in use on each
+    card meanwhile)."""
     import tempfile
+    free, total = torch.cuda.mem_get_info(0)
+    print(f"sharded round {what}: {(total - free) / 1e9:.2f} GB in use on "
+          f"card 0 before the ranks start", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="shard_store_") as tmp, \
+            CardPeak(torch) as peak:
+        ranks = run_shard_ranks(torch, dict(
+            job, backend=backend, store=os.path.join(tmp, "store")))
+    seconds = time.perf_counter() - t0
+    print(f"sharded round {what}: {seconds:.1f} s spawn to exit, peak on "
+          f"the card {max(peak.gb):.2f} GB (every card: "
+          f"{[round(g, 2) for g in peak.gb]}), a rank's own peak "
+          f"{max(r['peak_gb'] for r in ranks):.2f} GB", flush=True)
+    return ranks, seconds, peak.gb
+
+
+def check_serve(r: dict, key: str, prefill: dict, tick: dict) -> None:
+    """A rank's ``_sharded_serve`` result: the flash launches by route in
+    the prefill and in all the ticks (``prefill``, ``tick``: route -> a
+    rank's count, per tick for ``tick``), f32 within 1e-4 of the logits'
+    scale with its greedy tokens equal, bf16 within ``RMS_TOL``."""
+    got = r[key]
+    want_tick = {k: v * SHARD_TICKS for k, v in tick.items()}
+    pre = {k: v for k, v in got["launches"]["flash"].items() if v}
+    ticks = {k: v for k, v in got["tick_launches"]["flash"].items() if v}
+    if pre != prefill or ticks != want_tick:
+        raise AssertionError(f"rank {r['rank']} {key} flash launches: "
+                             f"prefill {pre} (want {prefill}), ticks {ticks} "
+                             f"(want {want_tick})")
+    worst = max([got["prefill_err"]] + got["step_errs"])
+    if key.endswith("float32"):
+        if worst > 1e-4 or not got["tokens_equal"]:
+            raise AssertionError(f"rank {r['rank']} {key} f32: {got}")
+    elif worst > RMS_TOL["bfloat16"]:
+        raise AssertionError(f"rank {r['rank']} {key} bf16: {got}")
+
+
+def sharded_phase(torch, card: str) -> dict:
+    """Phase 20: the dense, MoE, enc-dec and VLM families sharded on a
+    (data 2, model 2) DeviceMesh, each sub-phase held to the same run on
+    one device, in the rounds of rank processes of ``SHARD_ROUNDS``; see
+    the module docstring."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gm
     cards = torch.cuda.device_count()
@@ -3472,21 +3809,25 @@ def sharded_phase(torch, card: str) -> dict:
           f"(one card: {SHARD_RANKS} ranks share card 0 and gloo stages "
           f"the collectives through the host; four cards: nccl, one a "
           f"rank); mesh (data, model) = {SHARD_MESH}", flush=True)
-    t0 = time.perf_counter()
+    t_phase = time.perf_counter()
+    free, total = torch.cuda.mem_get_info(0)
+    print(f"sharded: {(total - free) / 1e9:.2f} GB of {total / 1e9:.2f} in "
+          f"use on card 0 at the start", flush=True)
     kcases = shard_kernel_cases(torch, fa, gm)
-    ref = shard_references(torch)
-    ref_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="shard_store_") as tmp:
-        job = dict(ref, backend=backend, store=os.path.join(tmp, "store"))
-        ranks = run_shard_ranks(torch, job)
-    ranks_s = time.perf_counter() - t0
-    del job, ref
-    gc.collect()
-    torch.cuda.ipc_collect()
-    torch.cuda.empty_cache()
     L = SHARD_LAYERS
-    for r in ranks:
+    rounds = {}
+    for n, (what, refs, _) in SHARD_ROUNDS.items():
+        t0 = time.perf_counter()
+        job = dict(refs(torch), round=n)
+        ref_s = time.perf_counter() - t0
+        ranks, ranks_s, peak = shard_round(torch, job, backend, what)
+        del job
+        gc.collect()
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+        rounds[n] = dict(references_s=ref_s, ranks_s=ranks_s,
+                         card_peak_gb=peak, ranks=ranks)
+    for r in rounds[1]["ranks"]:
         a = r["a"]
         if a["loss_err"] > 1e-5 or a["m_err"] > 1e-4 or a["v_err"] > 1e-4:
             raise AssertionError(f"rank {r['rank']} (a) train step: loss "
@@ -3495,16 +3836,8 @@ def sharded_phase(torch, card: str) -> dict:
         if not a["comm_counts"] or a["coll_bytes"]["reduce-scatter"] <= 0:
             raise AssertionError(f"rank {r['rank']} (a): no reduce-scatter "
                                  f"of the fsdp grads: {a}")
-        b16, b32 = r["b_bfloat16"], r["b_float32"]
-        if b16["launches"]["flash"]["wgmma"] != L or \
-                b32["launches"]["flash"]["f32"] != L:
-            raise AssertionError(f"rank {r['rank']} (b) flash launches "
-                                 f"{b16['launches']} {b32['launches']}")
-        if max([b32["prefill_err"]] + b32["step_errs"]) > 1e-4 or \
-                not b32["tokens_equal"]:
-            raise AssertionError(f"rank {r['rank']} (b) f32: {b32}")
-        if max([b16["prefill_err"]] + b16["step_errs"]) > RMS_TOL["bfloat16"]:
-            raise AssertionError(f"rank {r['rank']} (b) bf16: {b16}")
+        check_serve(r, "b_bfloat16", {"wgmma": L}, {})
+        check_serve(r, "b_float32", {"f32": L}, {})
         c16, c32 = r["c_bfloat16"], r["c_float32"]
         for d in c16["keep_differences"] + c32["keep_differences"]:
             print("routing difference " + json.dumps(dict(d, rank=r["rank"])),
@@ -3518,10 +3851,28 @@ def sharded_phase(torch, card: str) -> dict:
                 c16["loss_err"] > RMS_TOL["bfloat16"]:
             raise AssertionError(f"rank {r['rank']} (c): f32 {c32}, bf16 "
                                  f"{c16['loss_err']}")
+    for r in rounds[2]["ranks"]:
+        d = r["d"]
+        if d["loss_err"] > 1e-5 or max(d["metric_errs"].values()) > 1e-5 \
+                or d["m_err"] > 1e-4 or d["v_err"] > 1e-4:
+            raise AssertionError(f"rank {r['rank']} (d) 2-microbatch train "
+                                 f"step: {d}")
+        if d["coll_bytes"]["all-to-all"] <= 0 or \
+                d["coll_bytes"]["reduce-scatter"] <= 0:
+            raise AssertionError(f"rank {r['rank']} (d): no all-to-all of "
+                                 f"the batch or reduce-scatter of the grads: "
+                                 f"{d['coll_bytes']}")
+        # 2 encoder, 2 decoder self, 2 cross in the prefill; cross a tick
+        check_serve(r, "d_bfloat16", {"wgmma": 3 * L}, {"wgmma": L})
+        check_serve(r, "d_float32", {"f32": 3 * L}, {"f32": L})
+    for r in rounds[3]["ranks"]:
+        check_serve(r, "e_bfloat16", {"wgmma": L}, {})
+        check_serve(r, "e_float32", {"f32": L}, {})
     res = dict(card=card, backend=backend, world=SHARD_RANKS, cards=cards,
-               mesh=SHARD_MESH, layers=L, references_s=ref_s,
-               ranks_s=ranks_s, kernel_cases=kcases,
-               ranks=[{k: v for k, v in r.items()} for r in ranks])
+               mesh=SHARD_MESH, layers=L, kernel_cases=kcases,
+               seconds=time.perf_counter() - t_phase,
+               rounds={n: dict(rd, ranks=[dict(r) for r in rd["ranks"]])
+                       for n, rd in rounds.items()})
     print("sharded " + json.dumps(res), flush=True)
     return res
 
@@ -3692,8 +4043,8 @@ def main() -> int:
     phase(f"ep {EP_ARCH}")
     epres = ep_moe_phase(torch, card)
 
-    # 20. the dense and MoE families sharded on a (data 2, model 2) mesh:
-    # a train step, prefill and decode, and the MoE loss
+    # 20. the dense, MoE, enc-dec and VLM families sharded on a (data 2,
+    # model 2) mesh: train steps, prefill and decode, the MoE loss
     phase("sharded")
     shres = sharded_phase(torch, card)
 
@@ -3737,8 +4088,16 @@ def main() -> int:
         "library_ms": big["library_ms"],
         "library_causal_ms": big["library_causal_ms"],
         "sharded_prefill_launches_per_rank": [
-            r["b_bfloat16"]["launches"]["flash"] for r in shres["ranks"]],
-        "sharded_case": shres["kernel_cases"]["flash"],
+            r["b_bfloat16"]["launches"]["flash"]
+            for r in shres["rounds"][1]["ranks"]],
+        "sharded_encdec_launches_per_rank": [
+            {"prefill": r["d_bfloat16"]["launches"]["flash"],
+             "ticks": r["d_bfloat16"]["tick_launches"]["flash"]}
+            for r in shres["rounds"][2]["ranks"]],
+        "sharded_vlm_prefill_launches_per_rank": [
+            r["e_bfloat16"]["launches"]["flash"]
+            for r in shres["rounds"][3]["ranks"]],
+        "sharded_cases": shres["kernel_cases"]["flash"],
     }, {
         "name": "rwkv6_scan",
         "route": "cuda",
@@ -3789,7 +4148,8 @@ def main() -> int:
         "ep_launches_per_rank": epres["gmm_launches"],
         "ep_cases": epres["gmm_cases"],
         "sharded_loss_launches_per_rank": [
-            r["c_bfloat16"]["launches"]["gmm"] for r in shres["ranks"]],
+            r["c_bfloat16"]["launches"]["gmm"]
+            for r in shres["rounds"][1]["ranks"]],
         "sharded_cases": shres["kernel_cases"]["gmm"],
     }]}), flush=True)
 

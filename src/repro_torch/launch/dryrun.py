@@ -21,8 +21,15 @@ Nothing is compiled, so there is no ``memory_analysis`` or
 ``cost_analysis``: the counts are of the eager program (its traffic is
 unfused), and ``trace_s`` (the run's wall time) takes the place of the
 reference's ``lower_s``/``compile_s``; there is no ``xla_cost_analysis``.
-The dense and MoE families run; the others raise (``models/model.py``
-``_check_mesh``) and their cells print ``FAIL``.
+The dense, MoE, enc-dec and VLM families run; RWKV6 and the hybrid raise
+(``models/model.py`` ``_check_mesh``) and their cells print ``FAIL``.  A
+train cell's 4 microbatches are the reference's global row blocks, so its
+step moves the batch once, by an all-to-all (``train/step.py``
+``_split_global``), counted with the other collectives.  A parameter
+whose dim a mesh axis does not divide is kept whole on that axis
+(``sanitize_shardings``: seamless-m4t-medium's vocab of 256206 on a
+16-way ``model`` axis); ``replicated`` lists each such leaf with the
+bytes a rank holds of it.
 
 Artifacts land in ``experiments/artifacts_torch/<arch>__<shape>__<mesh>.json``.
 
@@ -59,10 +66,10 @@ from repro_torch.models import (
 )
 from repro_torch.optim import state_axes
 from repro_torch.optim.adamw import tree_leaves
-from repro_torch.parallel.context import sharding_ctx
+from repro_torch.parallel.context import fit, sharding_ctx
 from repro_torch.parallel.sharding import (
     batch_shardings, check_distributed, distribute_tree, make_ctx,
-    tree_shardings,
+    tree_paths, tree_shardings,
 )
 from repro_torch.train.step import make_opt_state, make_train_step
 
@@ -193,6 +200,12 @@ def _trace(arch, shape_name, mesh_kind, run, mesh, n_dev) -> Dict[str, Any]:
         train = False
     check_distributed(args, "args")
     arg_bytes = _local_bytes(args)
+    replicated = [
+        {"leaf": path, "shape": list(t.shape), "spec": list(sh.spec),
+         "bytes_per_device": _local_bytes(t)}
+        for (path, t), (_, sh) in zip(tree_paths(p), tree_paths(
+            tree_shardings(ctx, p_axes)))
+        if fit(sh, tuple(t.shape)).spec != sh.spec]
     mf = model_flops(cfg.param_count(active_only=True), tokens, train=train)
 
     t0 = time.time()
@@ -223,6 +236,7 @@ def _trace(arch, shape_name, mesh_kind, run, mesh, n_dev) -> Dict[str, Any]:
                                    "result's storage until it is freed",
                    "hbm_bytes": HBM_BYTES,
                    "fits_80gb": bool(peak <= HBM_BYTES)},
+        "replicated": replicated,
         "model_flops_total": mf,
         "model_flops_per_device": mf / n_dev,
         "useful_flops_ratio": (mf / n_dev) / flops_dev if flops_dev else None,

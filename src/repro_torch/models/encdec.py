@@ -6,7 +6,11 @@ self-attention + cross-attention to the encoder states.  Under
 ``attention_impl="pallas"`` every attention that the reference sends to
 ``_attend`` takes the flash kernel: the encoder's (non-causal), the
 decoder's self-attention (causal) and cross-attention (non-causal,
-Sq != Skv; one query row a decode step).
+Sq != Skv; one query row a decode step).  On a mesh (DTensors) every
+attention runs on each rank's batch rows and heads, cross-attention's
+output product on its heads (``layers.matmul``), as in
+``attention_apply``, and every sublayer's output is laid out as the
+residual stream before it is added (``blocks._residual``).
 """
 from __future__ import annotations
 
@@ -16,12 +20,14 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models.attention import (
-    _attend, _project_q, _project_qkv, attention_apply, attention_axes,
-    attention_decode, attention_init, attention_prefill,
+    _attend, _merge_heads, _project_q, _project_qkv, _split_heads,
+    attention_apply, attention_axes, attention_decode, attention_init,
+    attention_prefill,
 )
+from repro_torch.models.blocks import _residual
 from repro_torch.models.layers import (
-    Axes, Params, mlp_apply, mlp_axes, mlp_init, rmsnorm, rmsnorm_init,
-    torch_dtype,
+    Axes, Params, matmul, mlp_apply, mlp_axes, mlp_init, rmsnorm,
+    rmsnorm_init, torch_dtype, use,
 )
 
 
@@ -49,8 +55,9 @@ def enc_block_apply(cfg: ModelConfig, p: Params, h: torch.Tensor,
                     positions: torch.Tensor) -> torch.Tensor:
     a = attention_apply(cfg, p["attn"], rmsnorm(h, p["ln1"], cfg.rms_eps),
                         positions, causal=False)
-    h = h + a
-    return h + mlp_apply(cfg, p["mlp"], rmsnorm(h, p["ln2"], cfg.rms_eps))
+    h = h + _residual(a)
+    return h + _residual(mlp_apply(cfg, p["mlp"],
+                                   rmsnorm(h, p["ln2"], cfg.rms_eps)))
 
 
 # ---------------------------------------------------------------------------
@@ -84,13 +91,14 @@ def dec_block_apply(cfg: ModelConfig, p: Params, h: torch.Tensor,
     a = attention_apply(cfg, p["self_attn"],
                         rmsnorm(h, p["ln1"], cfg.rms_eps),
                         positions, causal=True)
-    h = h + a
+    h = h + _residual(a)
     x = attention_apply(cfg, p["cross_attn"],
                         rmsnorm(h, p["ln_x"], cfg.rms_eps),
                         positions, causal=False, kv_x=enc_h,
                         kv_positions=enc_positions)
-    h = h + x
-    return h + mlp_apply(cfg, p["mlp"], rmsnorm(h, p["ln2"], cfg.rms_eps))
+    h = h + _residual(x)
+    return h + _residual(mlp_apply(cfg, p["mlp"],
+                                   rmsnorm(h, p["ln2"], cfg.rms_eps)))
 
 
 def dec_block_prefill(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -103,15 +111,15 @@ def dec_block_prefill(cfg: ModelConfig, p: Params, h: torch.Tensor,
     a, self_kv = attention_prefill(cfg, p["self_attn"],
                                    rmsnorm(h, p["ln1"], cfg.rms_eps),
                                    positions)
-    h = h + a
+    h = h + _residual(a)
     xn = rmsnorm(h, p["ln_x"], cfg.rms_eps)
     q, ck, cv = _project_qkv(cfg, p["cross_attn"], xn, positions,
                              kv_x=enc_h, kv_positions=enc_positions)
     o = _attend(cfg, q, ck, cv, causal=False)
-    B, S = h.shape[:2]
-    dt = torch_dtype(cfg.dtype)
-    h = h + o.reshape(B, S, cfg.q_dim) @ p["cross_attn"]["wo"].to(dt)
-    h = h + mlp_apply(cfg, p["mlp"], rmsnorm(h, p["ln2"], cfg.rms_eps))
+    B = h.shape[0]
+    h = h + _residual(_cross_out(cfg, p, o))
+    h = h + _residual(mlp_apply(cfg, p["mlp"],
+                                rmsnorm(h, p["ln2"], cfg.rms_eps)))
     Senc = enc_h.shape[1]
     cache = {
         "k": self_kv["k"], "v": self_kv["v"],
@@ -130,14 +138,18 @@ def dec_block_decode(cfg: ModelConfig, p: Params, h: torch.Tensor,
     a, _, _ = attention_decode(cfg, p["self_attn"],
                                rmsnorm(h, p["ln1"], cfg.rms_eps),
                                positions, cache["k"], cache["v"], index)
-    h = h + a
+    h = h + _residual(a)
     xn = rmsnorm(h, p["ln_x"], cfg.rms_eps)
-    B = h.shape[0]
-    Senc = cache["xk"].shape[1]
     q = _project_q(cfg, p["cross_attn"], xn, positions)
-    kk = cache["xk"].reshape(B, Senc, cfg.num_kv_heads, cfg.head_dim)
-    vv = cache["xv"].reshape(B, Senc, cfg.num_kv_heads, cfg.head_dim)
+    kk, vv = (_split_heads(cache[k], cfg.num_kv_heads, cfg.head_dim)
+              for k in ("xk", "xv"))
     o = _attend(cfg, q, kk, vv, causal=False)
-    dt = torch_dtype(cfg.dtype)
-    h = h + o.reshape(B, 1, cfg.q_dim) @ p["cross_attn"]["wo"].to(dt)
-    return h + mlp_apply(cfg, p["mlp"], rmsnorm(h, p["ln2"], cfg.rms_eps))
+    h = h + _residual(_cross_out(cfg, p, o))
+    return h + _residual(mlp_apply(cfg, p["mlp"],
+                                   rmsnorm(h, p["ln2"], cfg.rms_eps)))
+
+
+def _cross_out(cfg: ModelConfig, p: Params, o: torch.Tensor) -> torch.Tensor:
+    """Cross-attention's output product: o [B,S,Hq,Dh] -> [B,S,d]."""
+    wo = use(p["cross_attn"]["wo"], torch_dtype(cfg.dtype), "heads", None)
+    return matmul(_merge_heads(o), wo)

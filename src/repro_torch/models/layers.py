@@ -9,6 +9,7 @@ bring the reference's own parameters over with ``repro_torch.bridge``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -174,7 +175,9 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     Frequency index i in [0, D/2) takes its position id from the section
     it falls into: sections = (n_t, n_h, n_w), sum = D/2.  Positions
     without the leading (t, h, w) axis raise; the reference's gather
-    fills the missing sections with NaN there.
+    fills the missing sections with NaN there.  On a DTensor x (batch on
+    dim 0) each rank rotates its own rows and heads, by positions laid
+    out with their batch (dim 1) on the same mesh dims.
     """
     half = x.shape[-1] // 2
     if sum(sections) != half:
@@ -184,6 +187,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
         raise ValueError(f"M-RoPE wants positions [{len(sections)}, ..., S] "
                          f"for x {tuple(x.shape)}; got "
                          f"{tuple(positions.shape)}")
+    if isinstance(x, DTensor):
+        return _mrope_sharded(x, positions, theta, sections)
     freqs = rope_freqs(x.shape[-1], theta, x.device)            # [half]
     # section j's frequencies take position ids positions[j]: the
     # reference's per-frequency gather, by slices (no host round trip)
@@ -198,6 +203,17 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def _mrope_sharded(x: DTensor, positions: torch.Tensor, theta: float,
+                   sections: Tuple[int, ...]) -> DTensor:
+    mesh = x.device_mesh
+    rows = [Shard(1) if p.is_shard(0) else Replicate() for p in x.placements]
+    positions = positions.redistribute(mesh, rows)
+    rotate = functools.partial(apply_mrope, theta=theta, sections=sections)
+    return local_map(rotate, out_placements=list(x.placements),
+                     in_placements=(x.placements, positions.placements),
+                     device_mesh=mesh)(x, positions)
 
 
 # ---------------------------------------------------------------------------

@@ -40,9 +40,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
-from repro_torch.config.base import (
-    DENSE, ENCDEC, HYBRID, MOE, SSM, ModelConfig,
-)
+from repro_torch.config.base import ENCDEC, HYBRID, SSM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import encdec as ED
@@ -134,22 +132,38 @@ def _prepends_frontend(cfg: ModelConfig, batch: Batch) -> bool:
 
 
 def _check_mesh(cfg: ModelConfig, tokens: torch.Tensor) -> None:
-    """On a mesh (DTensor inputs) only the dense and MoE families run: the
-    others' layers have no layout pinned yet, and DTensor's own choices
-    would gather whole tensors, so they are refused."""
-    if isinstance(tokens, DTensor) and cfg.family not in (DENSE, MOE):
+    """On a mesh (DTensor inputs) the dense, MoE, enc-dec and VLM families
+    run; RWKV6's and the hybrid's layers have no layout pinned yet, and
+    DTensor's own choices would gather whole tensors, so they are
+    refused."""
+    if isinstance(tokens, DTensor) and cfg.family in (SSM, HYBRID):
+        todo = "(g3b)" if cfg.family == SSM else "(g3c)"
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family on a DeviceMesh is not "
-            "ported (ROADMAP slice (g3))")
+            f"ported (ROADMAP slice {todo})")
 
 
 def _embed_inputs(cfg: ModelConfig, p: Params, batch: Batch) -> torch.Tensor:
-    """Token embeddings, with modality-frontend embeddings prepended."""
+    """Token embeddings, with modality-frontend embeddings prepended.  On
+    a mesh both parts are laid out as ``h`` is and each rank joins its own
+    rows (DTensor's ``cat`` may gather a sharded operand)."""
     _check_mesh(cfg, batch["tokens"])
     h = L.embed_tokens(cfg, p["embed"], batch["tokens"])
     if _prepends_frontend(cfg, batch):
-        h = torch.cat([_frontend(cfg, p, batch), h], dim=1)
+        parts = [shard(t, "batch", None, "embed_act")
+                 for t in (_frontend(cfg, p, batch), h)]
+        if isinstance(h, DTensor):
+            pl = parts[0].placements
+            h = local_map(_cat_seq, out_placements=list(pl),
+                          in_placements=(pl, pl),
+                          device_mesh=h.device_mesh)(*parts)
+        else:
+            h = _cat_seq(*parts)
     return shard(h, "batch", None, "embed_act")
+
+
+def _cat_seq(f: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return torch.cat([f, t], dim=1)
 
 
 def _logits(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
@@ -271,10 +285,13 @@ def forward(cfg: ModelConfig, p: Params, batch: Batch,
 def _encode(cfg: ModelConfig, p: Params, batch: Batch,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The encoder over the projected frontend: (enc_h [B,Senc,d] after
-    ``enc_norm``, enc_positions [B,Senc])."""
+    ``enc_norm``, enc_positions [B,Senc]; on a mesh laid out on
+    ``"batch"``, so RoPE runs on each rank's rows of k)."""
     enc_h = shard(_frontend(cfg, p, batch), "batch", None, "embed_act")
     Bsz, Senc = enc_h.shape[:2]
     enc_positions = torch.arange(Senc, device=enc_h.device).expand(Bsz, Senc)
+    if isinstance(enc_h, DTensor):
+        enc_positions = distribute(enc_positions.contiguous(), "batch", None)
 
     def enc_apply(lp, hh):
         return ED.enc_block_apply(cfg, lp, hh, enc_positions), None
@@ -297,7 +314,7 @@ def loss_fn(cfg: ModelConfig, p: Params, batch: Batch,
     targets = batch["targets"]
     if _prepends_frontend(cfg, batch):
         # frontend positions carry no next-token target; score text tail only
-        logits = logits[:, -targets.shape[1]:, :]
+        logits = _tail(logits, targets.shape[1])
     lf = logits.float()
     mask = (targets >= 0).float()
     tgt = torch.where(targets >= 0, targets, 0).long()
@@ -313,6 +330,18 @@ def loss_fn(cfg: ModelConfig, p: Params, batch: Batch,
     total = ce + z + aux
     return total, {"loss": total, "ce": ce, "aux": aux, "z": z,
                    "tokens": mask.sum()}
+
+
+def _tail(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x[:, -n:].  On a mesh (dim 1 never sharded) each rank slices its own
+    block, and the grad's scatter back stays on it: DTensor's own
+    ``slice_backward`` lays the grad out on dim 1 and then trades it for
+    the logits' layout by an all-to-all."""
+    if not isinstance(x, DTensor):
+        return x[:, -n:]
+    return local_map(lambda t: t[:, -n:], out_placements=list(x.placements),
+                     in_placements=(x.placements,),
+                     device_mesh=x.device_mesh)(x)
 
 
 def _lse_and_target_sharded(lf: DTensor, tgt: DTensor
@@ -427,7 +456,8 @@ def prefill(cfg: ModelConfig, p: Params, batch: Batch, max_len: int,
             ents.append(ent)
         cache = _embed_cache(cfg, ents, h.shape[0], max_len)
         for name in ("xk", "xv"):
-            cache[name] = torch.stack([e[name] for e in ents])
+            cache[name] = _stack_layers([e[name] for e in ents],
+                                        lambda *t: torch.stack(t))
     elif cfg.family == SSM:
         ents = []
         for lp in p["blocks"]:
@@ -461,27 +491,30 @@ def prefill(cfg: ModelConfig, p: Params, batch: Batch, max_len: int,
 def _embed_cache(cfg: ModelConfig, kvs: List[Dict[str, torch.Tensor]],
                  batch: int, max_len: int) -> Params:
     """Pad per-layer prefill K/V [B,S,kv] into a [L,B,max_len,kv] cache;
-    on a mesh each rank pads its own block, and the cache is laid out by
-    ``cache_logical_axes``."""
+    on a mesh each rank pads its own block (``_stack_layers``)."""
     S = kvs[0]["k"].shape[1]
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len={max_len}")
     pad = functools.partial(_pad_stack, max_len=max_len,
                             dtype=L.torch_dtype(cfg.dtype))
-    out = {}
-    for name in ("k", "v"):
-        parts = [kv[name] for kv in kvs]
-        if not isinstance(parts[0], DTensor):
-            out[name] = pad(*parts)
-            continue
-        parts = [shard(t, "batch", None, "kv_act") for t in parts]
-        pl = parts[0].placements
-        stacked = tuple(type(p)(p.dim + 1) if p.is_shard() else p
-                        for p in pl)
-        out[name] = local_map(pad, out_placements=list(stacked),
-                              in_placements=(pl,) * len(parts),
-                              device_mesh=parts[0].device_mesh)(*parts)
-    return out
+    return {name: _stack_layers([kv[name] for kv in kvs], pad)
+            for name in ("k", "v")}
+
+
+def _stack_layers(parts: List[torch.Tensor], stack: Callable
+                  ) -> torch.Tensor:
+    """``stack(*parts)``: per-layer cache entries [B,S,kv] into one
+    [L,B,.,kv] entry.  On a mesh each part is laid out ("batch", None,
+    "kv_act") and each rank stacks its own blocks, so the entry comes out
+    laid out by ``cache_logical_axes``."""
+    if not isinstance(parts[0], DTensor):
+        return stack(*parts)
+    parts = [shard(t, "batch", None, "kv_act") for t in parts]
+    pl = parts[0].placements
+    stacked = tuple(type(p)(p.dim + 1) if p.is_shard() else p for p in pl)
+    return local_map(stack, out_placements=list(stacked),
+                     in_placements=(pl,) * len(parts),
+                     device_mesh=parts[0].device_mesh)(*parts)
 
 
 def _pad_stack(*parts: torch.Tensor, max_len: int,
@@ -510,7 +543,8 @@ def decode_step(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
               "embed_act")
     pos = index[:, None]
     if cfg.mrope_sections:
-        pos = index[None, :, None].expand(3, tokens.shape[0], 1)
+        pos = shard(index[None, :, None].expand(3, tokens.shape[0], 1),
+                    None, "batch", None)
     blocks = p["dec_blocks"] if cfg.family == ENCDEC else p["blocks"]
     for i, lp in enumerate(blocks):
         if cfg.family == ENCDEC:

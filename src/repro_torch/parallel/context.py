@@ -95,8 +95,12 @@ def sharding_ctx(ctx: Optional[ShardingCtx]):
     """Make ``ctx`` the active context.  Under a context a plain tensor that
     meets a DTensor in an op (an ``arange`` of positions, RoPE's
     frequencies) counts as replicated, as a constant does under ``jit``
-    with shardings."""
+    with shardings.  Contexts nest (each remat group enters its own): on
+    leaving, the implicit replication is put back as it was, where
+    ``implicit_replication`` would turn it off for the enclosing one."""
     prev = current_ctx()
+    dispatcher = DTensor._op_dispatcher
+    implicit = dispatcher._allow_implicit_replication
     _STATE.ctx = ctx
     try:
         if ctx is None:
@@ -106,6 +110,7 @@ def sharding_ctx(ctx: Optional[ShardingCtx]):
                 yield ctx
     finally:
         _STATE.ctx = prev
+        dispatcher._allow_implicit_replication = implicit
 
 
 def axis_size(mesh: DeviceMesh, axes: MeshAxes) -> int:

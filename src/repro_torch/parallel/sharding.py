@@ -135,19 +135,21 @@ def full_tree(tree: Any) -> Any:
 def check_distributed(tree: Any, what: str) -> None:
     """Raise unless every leaf of ``tree`` is a DTensor: a sharded step
     given a plain leaf would run it as a per-rank tensor, silently."""
-    for path, leaf in _paths(tree):
+    for path, leaf in tree_paths(tree):
         if not isinstance(leaf, DTensor):
             raise TypeError(f"{what}{path} is a plain {type(leaf).__name__}, "
                             "not a DTensor: lay the tree out with "
                             "distribute_tree first")
 
 
-def _paths(tree: Any, prefix: str = ""):
+def tree_paths(tree: Any, prefix: str = ""):
+    """(path, leaf) of every leaf, the path as an index expression
+    (``['blocks'][1]['ln2']``)."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _paths(v, f"{prefix}[{k!r}]")
+            yield from tree_paths(v, f"{prefix}[{k!r}]")
     elif isinstance(tree, list):
         for i, v in enumerate(tree):
-            yield from _paths(v, f"{prefix}[{i}]")
+            yield from tree_paths(v, f"{prefix}[{i}]")
     else:
         yield prefix, tree

@@ -21,14 +21,18 @@ is the counterpart of ``jit(step, in_shardings, out_shardings)``: every
 leaf of the params, the optimizer state and the batch must be a DTensor
 laid out by its sharding (``parallel/sharding.py`` ``distribute_tree``;
 a plain leaf raises), the params and state are updated in place in that
-layout, and each microbatch takes its share of every rank's local batch.
-The metrics come back as plain tensors.
+layout, and microbatch i is the global rows [i·B/n, (i+1)·B/n) of the
+batch, as the reference splits it, laid out on the batch's own placements
+(``_split_global``: one all-to-all a batch leaf among the ranks that share
+a model coordinate).  The metrics come back as plain tensors.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor
 
 from repro_torch.config.base import RunConfig
@@ -52,10 +56,17 @@ def make_opt_state(run: RunConfig, params: Params) -> Dict[str, Any]:
     return state
 
 
+def _batch_dim(name: str, x: torch.Tensor) -> int:
+    """The batch dim of a batch leaf: 1 for VLM positions [3, B, S]
+    (``parallel/sharding.py`` ``batch_shardings``), 0 for the rest."""
+    return 1 if name == "positions" and x.ndim == 3 and x.shape[0] == 3 \
+        else 0
+
+
 def _split_microbatches(batch: Batch, n: int) -> Batch:
     """[B, ...] -> [n, B/n, ...] (positions for VLM split on dim 1)."""
     def split(name, x):
-        if name == "positions" and x.ndim == 3 and x.shape[0] == 3:
+        if _batch_dim(name, x) == 1:
             return x.reshape(3, n, x.shape[1] // n,
                              *x.shape[2:]).movedim(1, 0)
         return x.reshape(n, x.shape[0] // n, *x.shape[1:])
@@ -63,20 +74,80 @@ def _split_microbatches(batch: Batch, n: int) -> Batch:
     return {k: split(k, v) for k, v in batch.items()}
 
 
-def _split_local(batch: Batch, n: int) -> list:
-    """n microbatches of DTensors, each holding 1/n of every rank's local
-    batch rows, in the batch's placements."""
+def _split_global(batch: Batch, n: int) -> list:
+    """n microbatches of DTensors: microbatch i holds the global rows
+    [i·B/n, (i+1)·B/n) of every leaf on its batch dim, as
+    ``_split_microbatches`` splits one device's batch, laid out on the
+    leaf's own placements, so each rank holds its block of it."""
     out = [dict() for _ in range(n)]
     for name, x in batch.items():
-        dim = next((p.dim for p in x.placements if p.is_shard()), 0)
+        dim = _batch_dim(name, x)
         shape = list(x.shape)
+        if shape[dim] % n:
+            raise ValueError(f"batch {name!r} of {shape[dim]} rows does not "
+                             f"split into {n} microbatches")
         shape[dim] //= n
-        for i, part in enumerate(x.to_local().chunk(n, dim=dim)):
+        local = x.to_local()
+        mesh_dims = [i for i, p in enumerate(x.placements) if p.is_shard(dim)]
+        if mesh_dims:
+            local = _to_microbatch_order(local.movedim(dim, 0), x.device_mesh,
+                                         mesh_dims, n).movedim(0, dim)
+        for i, part in enumerate(local.chunk(n, dim=dim)):
             out[i][name] = DTensor.from_local(
                 part.contiguous(), x.device_mesh, x.placements,
                 run_check=False, shape=torch.Size(shape),
                 stride=torch.empty(shape, device="meta").stride())
     return out
+
+
+def _to_microbatch_order(local: torch.Tensor, mesh, mesh_dims: list,
+                         n: int) -> torch.Tensor:
+    """This rank's rows of every microbatch, microbatch after microbatch,
+    from its block of a batch sharded on dim 0 over ``mesh_dims`` (D
+    blocks, the major mesh dim first, as DTensor splits a dim).
+
+    In units of m = B / (n·D) rows, block d holds the global units
+    [d·n, (d+1)·n), and microbatch i's block r is unit i·D + r: each rank
+    sends its n units to the ranks that hold them in their microbatches
+    and receives its own from the blocks that hold them, in one
+    all-to-all among the ranks that share this rank's coordinates on the
+    other mesh dims (issued on the default group, which the mesh must
+    span, with no rows for the others)."""
+    if mesh.size() != dist.get_world_size():
+        raise ValueError("the mesh must span the default process group")
+    sizes = [mesh.size(i) for i in mesh_dims]
+    coord = mesh.get_coordinate()
+    D, d = 1, 0
+    for i, size in zip(mesh_dims, sizes):
+        D, d = D * size, d * size + coord[i]
+    rows = local.shape[0]
+    if rows % n:
+        raise ValueError(f"{rows} batch rows a rank do not split into {n} "
+                         "microbatches")
+    m = rows // n
+
+    def rank_of(block: int) -> int:
+        c = list(coord)
+        for i, size in zip(reversed(mesh_dims), reversed(sizes)):
+            block, c[i] = divmod(block, size)
+        return int(mesh.mesh[tuple(c)])
+
+    dest = [rank_of((d * n + u) % D) for u in range(n)]
+    src = [rank_of((i * D + d) // n) for i in range(n)]
+    world = dist.get_world_size()
+    send_splits, recv_splits = [0] * world, [0] * world
+    for u in range(n):
+        send_splits[dest[u]] += m
+        recv_splits[src[u]] += m
+    # each buffer runs rank by rank, a sender's units in their order
+    send_order = sorted(range(n), key=dest.__getitem__)
+    recv_order = sorted(range(n), key=src.__getitem__)
+    units = local.reshape(n, m, *local.shape[1:])
+    send = units[send_order].reshape(local.shape)
+    recv = funcol.wait_tensor(funcol.all_to_all_single(
+        send.contiguous(), recv_splits, send_splits, dist.group.WORLD))
+    recv = recv.reshape(n, m, *local.shape[1:])
+    return recv[[recv_order.index(i) for i in range(n)]].reshape(local.shape)
 
 
 def _plain(x: torch.Tensor) -> torch.Tensor:
@@ -103,7 +174,7 @@ def make_train_step(run: RunConfig) -> Callable:
             if n_micro == 1:
                 micro = [batch]
             elif sharded:
-                micro = _split_local(batch, n_micro)
+                micro = _split_global(batch, n_micro)
             else:
                 split = _split_microbatches(batch, n_micro)
                 micro = [{k: v[i] for k, v in split.items()}

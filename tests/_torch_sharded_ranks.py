@@ -86,12 +86,13 @@ def jobs_rank(rank, world, jobs):
 
 
 def train_step_rank(rank, world, device, cfg, mesh_shape, params, batch,
-                    microbatches=1, state_dtype="float32"):
-    """One ``fsdp`` train step on a (data, model) mesh: the loss before it
-    (no grad), the step's metrics, the moments gathered, whether the step
-    ran in place and kept every leaf's placements."""
+                    microbatches=1, state_dtype="float32", policy="fsdp"):
+    """One train step (``fsdp`` unless ``policy`` says otherwise) on a
+    (data, model) mesh: the loss before it (no grad), the step's metrics,
+    the moments gathered, whether the step ran in place and kept every
+    leaf's placements."""
     mesh = _mesh(mesh_shape, device)
-    run = _run(cfg, "fsdp", batch["tokens"].shape[0],
+    run = _run(cfg, policy, batch["tokens"].shape[0],
                batch["tokens"].shape[1], microbatches, state_dtype)
     ctx = make_ctx(mesh, run.sharding)
     p_axes = param_axes(cfg)
@@ -182,14 +183,15 @@ def prefill_rank(rank, world, device, cfg, mesh_shape, params, prompt,
 
 
 def decode_rank(rank, world, device, cfg, mesh_shape, params, prompt,
-                max_len, ticks):
-    """``baseline`` decode on a (pod, data, model) mesh: prefill, then
-    ``ticks`` greedy decode steps through the sharded cache.  Returns each
-    step's logits (gathered), the tokens fed, this rank's mesh coordinate,
-    its own block of every cache entry after the last step, and whether
-    the cache kept its layout (``cache_logical_axes``)."""
+                max_len, ticks, policy="baseline"):
+    """Decode (``baseline`` unless ``policy`` says otherwise) on a (data,
+    model) or (pod, data, model) mesh: prefill, then ``ticks`` greedy
+    decode steps through the sharded cache.  Returns each step's logits
+    (gathered), the tokens fed, this rank's mesh coordinate, its own block
+    of every cache entry after the prefill and after the last step, and
+    whether the cache kept its layout (``cache_logical_axes``)."""
     mesh = _mesh(mesh_shape, device)
-    ctx = make_ctx(mesh, ShardingConfig(policy="baseline"), decode=True)
+    ctx = make_ctx(mesh, ShardingConfig(policy=policy), decode=True)
     pd = distribute_tree(_to(params, device),
                          tree_shardings(ctx, param_axes(cfg)))
     b = _to(prompt, device)
@@ -201,6 +203,9 @@ def decode_rank(rank, world, device, cfg, mesh_shape, params, prompt,
     with sharding_ctx(ctx), torch.no_grad():
         lg, cache = prefill(cfg, pd, bd, max_len)
         prefill_launches = _launches()
+        kept = _placements(cache) == want
+        prefill_blocks = {k: v.to_local().clone().cpu()
+                          for k, v in cache.items()}
         for _ in range(ticks):
             full = lg.full_tensor()
             logits.append(full.cpu())
@@ -212,7 +217,8 @@ def decode_rank(rank, world, device, cfg, mesh_shape, params, prompt,
         logits.append(lg.full_tensor().cpu())
     return dict(logits=logits, tokens=tokens, coord=mesh.get_coordinate(),
                 blocks={k: v.to_local().cpu() for k, v in cache.items()},
-                kept=kept, prefill_launches=prefill_launches)
+                prefill_blocks=prefill_blocks, kept=kept,
+                prefill_launches=prefill_launches)
 
 
 def global_norm_rank(rank, world, device, mesh_shape, tree):
@@ -253,3 +259,47 @@ def remat_outside_ctx_rank(rank, world, device, cfg, mesh_shape, params,
             loss.backward()
         out.append([t.grad.full_tensor().cpu() for t in tree_leaves(pd)])
     return out
+
+
+def split_rank(rank, world, device, mesh_shape, cases):
+    """``train/step.py`` ``_split_global`` on a batch laid out by
+    ``batch_shardings`` (tokens [B, 3], VLM positions [3, B, 2], a
+    frontend [B, 2, 4]), for each (B, microbatches) of ``cases``: whether
+    every microbatch, gathered, equals the one-device split's and keeps
+    the batch's placements."""
+    from repro_torch.train.step import _split_global, _split_microbatches
+    mesh = _mesh(mesh_shape, device)
+    ctx = make_ctx(mesh, ShardingConfig(policy="fsdp"))
+    ok = True
+    for b, n in cases:
+        gen = torch.Generator().manual_seed(b * n)
+        batch = {"tokens": torch.arange(b * 3).reshape(b, 3),
+                 "positions": torch.arange(3 * b * 2).reshape(3, b, 2),
+                 "frontend": torch.randn(b, 2, 4, generator=gen)}
+        bd = distribute_tree(_to(batch, device),
+                             batch_shardings(ctx, batch))
+        want = _split_microbatches(batch, n)
+        for i, mb in enumerate(_split_global(bd, n)):
+            for k, t in mb.items():
+                ok = ok and t.placements == bd[k].placements and \
+                    torch.equal(t.full_tensor().cpu(), want[k][i])
+    return ok
+
+
+def refuse_family_rank(rank, world, device, cfg, mesh_shape):
+    """``loss_fn`` of a family that does not run on a mesh, on DTensors:
+    the ``NotImplementedError`` it raises, or None."""
+    from repro_torch.data import make_batch
+    from repro_torch.models import init_params
+    mesh = _mesh(mesh_shape, device)
+    ctx = make_ctx(mesh, ShardingConfig(policy="fsdp"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device)
+    batch = make_batch(cfg, 4, 16, torch.Generator().manual_seed(1), device)
+    pd = distribute_tree(params, tree_shardings(ctx, param_axes(cfg)))
+    bd = distribute_tree(batch, batch_shardings(ctx, batch))
+    try:
+        with sharding_ctx(ctx), torch.no_grad():
+            loss_fn(cfg, pd, bd)
+    except NotImplementedError as e:
+        return str(e)
+    return None

@@ -8,8 +8,9 @@ explicit-sharding gather, so the single-device run is the yardstick.
 All in f32 on the tiny configs, where only the order of the sums differs:
 - qwen3-8b ``fsdp`` train step (remat "full"): the loss within 1e-5, the
   moments within 1e-4 of each leaf's scale (``lr_at(0)`` is 0), in place
-  with every leaf's placements kept; with 2 microbatches of the local
-  batch too;
+  with every leaf's placements kept; with 2 microbatches too, held to
+  the reference's 2-microbatch step (the split's own test, with unevenly
+  masked targets: ``test_torch_sharded_microbatch.py``);
 - qwen3-moe ``fsdp`` loss, on the ``xla`` paths and on ``pallas`` (the
   kernels' plain versions on the CPU, per rank): within 1e-5;
 - qwen3-8b prefill under ``fsdp`` and ``baseline``: logits and cache;
@@ -70,11 +71,11 @@ def _scaled(got, want):
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-def _run(cfg, **optim):
+def _run(cfg, microbatches=1, **optim):
     return jbase.RunConfig(
         model=cfg, shape=jbase.ShapeConfig("t", "train", S, B),
         sharding=jbase.ShardingConfig(policy="fsdp"),
-        optim=jbase.OptimConfig(**optim))
+        optim=jbase.OptimConfig(**optim), microbatches=microbatches)
 
 
 @pytest.fixture(scope="module")
@@ -128,21 +129,22 @@ def mesh22(dense, moe, prompt, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def train_ref(dense):
+    """The reference's step with 1 and with 2 microbatches."""
     jcfg, jp, jb = dense[0], dense[2], dense[4]
-    js = jmake_opt_state(_run(jcfg), jp)
-    _, js, jm = jax.jit(jmake_train_step(_run(jcfg)))(jp, js, jb)
-    return dict(loss=float(jloss_fn(jcfg, jp, jb)[0]), metrics=jm,
-                m=_flat(js["m"]), v=_flat(js["v"]))
+    out = {}
+    for n in (1, 2):
+        js = jmake_opt_state(_run(jcfg, n), jp)
+        _, js, jm = jax.jit(jmake_train_step(_run(jcfg, n)))(jp, js, jb)
+        out[n] = dict(loss=float(jloss_fn(jcfg, jp, jb)[0]), metrics=jm,
+                      m=_flat(js["m"]), v=_flat(js["v"]))
+    return out
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
 def test_fsdp_train_step_matches_reference(mesh22, train_ref, dense,
                                            microbatches):
-    ref, tcfg = train_ref, dense[1]
-    # every row has the same targets masked, so the mean of 2 microbatches'
-    # losses and grads is the whole batch's; ce and z are the last
-    # microbatch's, whose rows (a half of each rank's) differ
-    keys = ("loss", "grad_norm") + (("ce", "z") if microbatches == 1 else ())
+    ref, tcfg = train_ref[microbatches], dense[1]
+    keys = ("loss", "grad_norm", "ce", "z", "aux")
     for ranks in mesh22:
         r = ranks[f"train{microbatches}"]
         np.testing.assert_allclose(float(r["loss"]), ref["loss"], rtol=1e-5)

@@ -11,7 +11,14 @@ each held to the same run on one device on the card:
   logits within 1e-4 of their scale, the same tokens;
 - (c) qwen3-moe ``fsdp`` loss with flash and ``gmm`` on each rank's local
   experts (``scan_impl="pallas"``, f32: 3 ``mma_sync`` launches a layer a
-  rank) within 1e-5 of the plain single-device loss.
+  rank) within 1e-5 of the plain single-device loss;
+- (d) seamless-m4t-medium (2 + 2 layers) ``fsdp`` train step with 2
+  microbatches (the reference's global row blocks: the frontend moves by
+  an all-to-all), f32, held as (a), and its ``baseline`` prefill and 3
+  ticks with flash (6 ``f32`` launches a rank in the prefill: encoder,
+  decoder self, cross), held as (b); (e) qwen2-vl-72b's ``baseline``
+  prefill (patches, then text; M-RoPE positions [3, B, S]) and 3 ticks
+  with flash, held as (b).
 
 Skips without a CUDA card.  On the card (no JAX needed):
 
@@ -132,3 +139,69 @@ def test_sharded_moe_loss_with_gmm_on_the_card(tmp_path):
         assert abs(float(got["loss"]) - want) <= 1e-5 * abs(want)
         assert got["launches"]["gmm"]["mma_sync"] == 3 * cfg.num_layers
         assert got["launches"]["flash"]["f32"] == cfg.num_layers
+
+
+@pytest.mark.gpu
+def test_sharded_encdec_and_vlm_on_the_card(tmp_path):
+    _card()
+    from repro_torch.config import RunConfig, ShapeConfig, ShardingConfig
+    from repro_torch.data import make_batch
+    from repro_torch.models import decode_step, loss_fn, prefill
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import make_opt_state, make_train_step
+    seam = get_tiny_config("seamless-m4t-medium").replace(dtype="float32")
+    vlm = get_tiny_config("qwen2-vl-72b").replace(dtype="float32")
+    cfgs = {"encdec": seam, "vlm": vlm}
+    params = {k: _params(c) for k, c in cfgs.items()}
+    batch = make_batch(seam, B, S, torch.Generator().manual_seed(1), "cpu")
+    prompts = {k: {n: t for n, t in make_batch(
+        c, B, S if k == "encdec" else PROMPT,
+        torch.Generator().manual_seed(2), "cpu").items() if n != "targets"}
+        for k, c in cfgs.items()}
+    prompts["encdec"]["tokens"] = prompts["encdec"]["tokens"][:, :PROMPT]
+    prompts["encdec"]["positions"] = prompts["encdec"]["positions"][
+        :, :PROMPT]
+    flash = {k: c.replace(attention_impl="pallas") for k, c in cfgs.items()}
+    jobs = {"train": (R.train_step_rank, ("cuda", seam, MESH,
+                                          params["encdec"], batch, 2))}
+    for k, c in flash.items():
+        jobs[k] = (R.decode_rank, ("cuda", c, MESH, params[k], prompts[k],
+                                   MAX_LEN, TICKS))
+    ranks = D.run_ranks(R.jobs_rank, 4, tmp_path, jobs)
+    run = RunConfig(model=seam, shape=ShapeConfig("t", "train", S, B),
+                    sharding=ShardingConfig(policy="fsdp"), microbatches=2)
+    p, b = _on(params["encdec"], "cuda"), _on(batch, "cuda")
+    with torch.no_grad():
+        loss = float(loss_fn(seam, p, b)[0])
+    opt = make_opt_state(run, p)
+    _, _, metrics = make_train_step(run)(p, opt, b)
+    want = {}
+    for k, c in flash.items():
+        steps = []
+        with torch.no_grad():
+            lg, cache = prefill(c, _on(params[k], "cuda"),
+                                _on(prompts[k], "cuda"), MAX_LEN)
+            for _ in range(TICKS):
+                steps.append(lg.cpu())
+                tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                lg, cache = decode_step(c, _on(params[k], "cuda"), tok,
+                                        cache)
+            steps.append(lg.cpu())
+        want[k] = steps
+    for r in ranks:
+        t = r["train"]
+        assert abs(float(t["loss"]) - loss) <= 1e-5 * abs(loss)
+        for k in ("loss", "grad_norm", "ce", "z"):
+            assert abs(float(t["metrics"][k]) - float(metrics[k])) <= \
+                1e-5 * abs(float(metrics[k])), k
+        for mom in ("m", "v"):
+            for got, w in zip(tree_leaves(t[mom]), tree_leaves(opt[mom])):
+                assert _scaled(got, w.cpu()) <= 1e-4, mom
+        for k, c in flash.items():
+            layers = c.encoder_layers + 2 * c.decoder_layers \
+                if k == "encdec" else c.num_layers
+            assert r[k]["prefill_launches"]["flash"]["f32"] == layers
+            for got, w in zip(r[k]["logits"], want[k]):
+                assert _scaled(got, w) <= 1e-4
+            assert [t.flatten().tolist() for t in r[k]["tokens"]] == \
+                [w[:, -1].argmax(-1).tolist() for w in want[k][:-1]]
