@@ -171,17 +171,17 @@ Phases, each of which raises on failure (exit code != 0):
                factor 32 against ``ep_moe_plain`` and ``moe_apply`` (1e-5
                scaled); the gmm kernel at a rank's received rows, timed
                beside torch.bmm; a failed or hung rank fails the phase;
- 20. sharded - the dense, MoE, enc-dec and VLM families on a (data 2,
-               model 2) DeviceMesh (``parallel/``, DTensor), 4 ranks
-               spawned as in phase 19 (one card: all on card 0, gloo
-               staging the collectives through the host; four cards:
-               nccl, one a rank), in three rounds of rank processes
-               ((a)-(c), (d), (e): the card holds one round's params at a
-               time; each round's peak on the card printed), every
-               sub-phase at full width and 2 layers (2 + 2 for the
-               enc-dec), the params seeded in the parent and shared;
-               first flash and gmm at the local shapes the ranks give
-               them, against their plain versions and timed; then, each
+ 20. sharded - every family on a (data 2, model 2) DeviceMesh
+               (``parallel/``, DTensor), 4 ranks spawned as in phase 19
+               (one card: all on card 0, gloo staging the collectives
+               through the host; four cards: nccl, one a rank), in five
+               rounds of rank processes ((a)-(c), (d), (e), (f), (g): the
+               card holds one round's params at a time; each round's peak
+               on the card printed), every sub-phase at full width and 2
+               layers (2 + 2 for the enc-dec, one superblock of 8 for the
+               hybrid), the params seeded in the parent and shared; first
+               the four kernels at the local shapes the ranks give them,
+               against their plain versions and timed; then, each
                held to the same run on one device on the card: (a)
                qwen3-4b ``fsdp`` train step, f32, 2 x 512 tokens, fp32 moments: the loss (1e-5)
                and every moment leaf after one step (1e-4 of its scale),
@@ -214,7 +214,29 @@ Phases, each of which raises on failure (exit code != 0):
                positions [3, 4, 512], and 16 greedy ticks, bf16 then f32,
                held as (b), flash on each rank's 32 q / 4 kv heads (2
                ``wgmma`` launches a rank in the bf16 prefill, 2 ``f32`` in
-               the f32 one); a failed or hung rank fails the phase;
+               the f32 one); (f) rwkv6-3b: an ``fsdp`` train step in f32
+               with 2 microbatches (4 rows of 512 tokens, targets masked
+               unevenly) held as (d), an ``fsdp`` bf16 loss through the
+               WKV6 kernel on each rank's 20 of 40 heads (2 launches a
+               rank; 1e-2), and ``baseline`` prefill of 4 x 512 and 16
+               ticks held as (b) (the state-returning chunk path, no
+               kernel launch); (g) jamba-1.5-large-398b without experts,
+               one superblock, bf16, ``baseline``: the loss over 4 x 512
+               tokens (7 selective-scan launches on each rank's 8192 of
+               16384 inner channels and 1 flash ``wgmma`` launch a rank;
+               1e-2; the all-to-all bytes of in_proj's column blocks),
+               prefill of 4 x 512 (again 7 + 1) and 16 ticks held as (b),
+               then decode on a sequence-sharded cache (the ``shard_seq``
+               decode rules: batch whole, the K/V rows split over data):
+               one 2040-token prompt, ``max_len`` 4096, 16 ticks fed the
+               single-device tokens across row 2048, so both data ranks'
+               blocks take writes: the logits (1e-2) and each rank's
+               block of every cache entry against the single-device
+               cache's slice (relative RMS 1e-2; the rows written equal);
+               jamba's experts (4 x 9.66 B params a superblock) fit no
+               card and are held on the CPU at tiny size, and so is its
+               f32 parity (a superblock is 36 GB in f32); a failed or
+               hung rank fails the phase;
 (every serving run checks each admission's splice of every cache entry)
 then prints a JSON line of kernel numbers and, last, the JSON result line.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -276,6 +298,10 @@ SEED = 0
 # the flash kernel against the plain version in f32 on the same inputs:
 # limits on the relative RMS error (``rms_rel_err``)
 RMS_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# (g): a sharded bf16 jamba run's error against the one-device f32 run, at
+# most this times the one-device bf16 run's own (one superblock amplifies
+# bf16 rounding to ~2.5e-2 between any two bf16 runs: PERF.md)
+BF16_FLOOR = 1.25
 EP_ARCH = "dbrx-132b"
 EP_RANKS = 4               # a (data=1, model=4) mesh: 4 of 16 experts a rank
 EP_BATCH = 4               # 4 x 2048 = 8192 tokens, dbrx's chunk_tokens
@@ -300,6 +326,11 @@ SHARD_FRAMES, SHARD_ENCDEC_PROMPT = 1024, 64     # serving: frames, text
 SHARD_VLM_ARCH = "qwen2-vl-72b"
 SHARD_VLM_PROMPTS, SHARD_VLM_SEQ = 4, 512        # 128 patches + 384 text
 SHARD_MICRO = 2            # (d)'s train step: the reference's microbatches
+SHARD_RWKV_ARCH = "rwkv6-3b"
+SHARD_RWKV_BATCH, SHARD_RWKV_SEQ = 4, 512       # (f): train, loss, serving
+SHARD_JAMBA_LAYERS = 8     # (g): one superblock, 9.0 B params, 18 GB bf16
+SHARD_JAMBA_BATCH, SHARD_JAMBA_SEQ = 4, 512     # (g): loss and serving
+SHARD_SEQ_PROMPT, SHARD_SEQ_MAX_LEN = 2040, 4096  # (g): shard_seq decode
 SHARD_LIMIT = 400          # seconds a round of phase 20's ranks may take
 EP_PG_TIMEOUT = 120        # seconds a collective may wait for a peer
 
@@ -3108,7 +3139,78 @@ def shard_flash_case(torch, fa, what, B, Hq, Hkv, Sq, Skv, D, causal):
     return c
 
 
-def shard_kernel_cases(torch, fa, gm) -> dict:
+def shard_wkv_case(torch, rw, B, H, S, D) -> dict:
+    """WKV6 at one rank's block (f32, [B,S,H,D] tensors handed over as
+    [B,H,S,D] views, as ``ops.rwkv6_scan`` hands them): held to the plain
+    version (scale-normalised max error 2e-4, as ``wkv_cases``), timed
+    beside it and the bound of this work; no single PyTorch call computes
+    WKV6."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    shape = (B, S, H, D)
+    r, k, v = (torch.randn(*shape, generator=gen, device="cuda")
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(*shape, generator=gen,
+                                         device="cuda")))
+    r, k, v, w = (t.transpose(1, 2) for t in (r, k, v, w))
+    u = torch.randn(H, D, generator=gen, device="cuda")
+    n0 = rw.rwkv6_scan.launches
+    out = rw.rwkv6_scan(r, k, v, w, u)
+    want = rw.rwkv6_scan_plain(r, k, v, w, u)
+    err = float((out - want).abs().max()) / (float(want.abs().max()) + 1.0)
+    if rw.rwkv6_scan.launches != n0 + 1 or err > 2e-4 or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"rwkv6_scan at a rank's block {shape}: {err}")
+    bound, by, work = wkv_bound(B, H, S, D)
+    c = dict(case="rwkv6_scan rank block", B=B, H=H, S=S, D=D,
+             max_abs_err=float((out - want).abs().max()), checked_err=err,
+             ms=cuda_ms(torch, lambda: rw.rwkv6_scan(r, k, v, w, u),
+                        iters=20),
+             plain_ms=cuda_ms(torch, lambda: rw.rwkv6_scan_plain(
+                 r, k, v, w, u), iters=3, warmup=1),
+             library_ms=None, bound_ms=bound, bound_by=by, **work)
+    print("kernel case " + json.dumps(c), flush=True)
+    return c
+
+
+def shard_scan_case(torch, mb, B, S, di, N, clock_hz) -> dict:
+    """The selective scan at one rank's block of channels (f32; dt from a
+    softplus, as the model's): y and the final state held to the plain
+    version (scaled error 1e-4, as ``mamba_cases``), timed beside it (the
+    call with the state, as a prefill makes it) and the bound of this
+    work; no single PyTorch call computes the scan."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+
+    def rnd(*sh):
+        return torch.randn(*sh, generator=gen, device="cuda")
+
+    args = (-torch.exp(rnd(di, N)), F.softplus(rnd(B, S, di)), rnd(B, S, N),
+            rnd(B, S, N), rnd(B, S, di))
+    n0 = mb.mamba_scan.launches
+    out, hT = mb.mamba_scan(*args, return_state=True)
+    want, want_h = mb.mamba_scan_plain(*args, return_state=True)
+    errs = [scaled_err(out, want), scaled_err(hT, want_h)]
+    if mb.mamba_scan.launches != n0 + 1 or max(errs) > 1e-4 or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"mamba_scan at a rank's block {(B, S, di, N)}:"
+                             f" {errs}")
+    bound, by, work = mamba_bound(B, S, di, N, clock_hz)
+    c = dict(case="mamba_scan rank block", B=B, S=S, di=di, N=N,
+             max_abs_err=float((out - want).abs().max()), checked_err=errs[0],
+             hT_checked_err=errs[1],
+             ms=cuda_ms(torch, lambda: mb.mamba_scan(*args), iters=20),
+             state_ms=cuda_ms(torch, lambda: mb.mamba_scan(
+                 *args, return_state=True), iters=20),
+             plain_ms=cuda_ms(torch, lambda: mb.mamba_scan_plain(*args),
+                              iters=2, warmup=1),
+             library_ms=None, bound_ms=bound, bound_by=by, **work)
+    print("kernel case " + json.dumps(c), flush=True)
+    return c
+
+
+def shard_kernel_cases(torch, fa, gm, rw, mb) -> dict:
     """Flash and gmm at the local shapes phase 20's ranks give them: flash
     on one rank's prefill block of qwen3-8b (2 prompts of 512 tokens, 16 q
     and 4 kv heads, D 128, causal), of seamless-m4t-medium (2 rows, 8 of
@@ -3121,7 +3223,10 @@ def shard_kernel_cases(torch, fa, gm) -> dict:
     512-token chunk (K 2048 -> N 768 and back, bf16).  Each against its
     plain version in f32 (relative RMS, ``RMS_TOL``), timed beside the
     plain version, one PyTorch call (SDPA; ``torch.bmm`` over the equal
-    groups) and the bound of this work."""
+    groups) and the bound of this work.  Then WKV6 at one rank's block of
+    (f)'s bf16 loss (2 rows of 512 tokens, 20 of rwkv6-3b's 40 heads of
+    64) and the selective scan at one of (g)'s (2 rows of 512 tokens,
+    8192 of jamba's 16384 inner channels, N 16)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops as kops
     from repro_torch.models.moe import _capacity
@@ -3173,7 +3278,15 @@ def shard_kernel_cases(torch, fa, gm) -> dict:
                  bound_ms=bound, bound_by=by)
         print("kernel case gmm " + json.dumps(c), flush=True)
         cases.append(c)
-    return {"flash": flash, "gmm": cases}
+    data, model = SHARD_MESH
+    wkv = shard_wkv_case(torch, rw, SHARD_RWKV_BATCH // data, 40 // model,
+                         SHARD_RWKV_SEQ, 64)
+    di = 2 * get_config(JAMBA_ARCH).d_model
+    scan = shard_scan_case(torch, mb, SHARD_JAMBA_BATCH // data,
+                           SHARD_JAMBA_SEQ, di // model, 16,
+                           max_sm_clock_hz())
+    return {"flash": flash, "gmm": cases, "rwkv6_scan": [wkv],
+            "mamba_scan": [scan]}
 
 
 def _recording_routes(moe_mod, store: list):
@@ -3293,7 +3406,9 @@ def serve_references(torch, cfg, params, prompt, max_len: int) -> dict:
         c = cfg.replace(dtype=dt, param_dtype=dt, attention_impl="pallas")
         p = params if dt == "float32" else tree_map(
             lambda t: t.to(torch.bfloat16), params)
-        pr = dict(prompt, frontend=prompt["frontend"].to(getattr(torch, dt)))
+        pr = dict(prompt)
+        if "frontend" in pr:
+            pr["frontend"] = pr["frontend"].to(getattr(torch, dt))
         with torch.inference_mode():
             lg, cache = prefill(c, p, pr, max_len)
             toks, steps, _, _ = decode_ticks(torch, c, p, lg, cache,
@@ -3323,11 +3438,8 @@ def encdec_references(torch) -> dict:
         encoder_layers=L, decoder_layers=L, num_layers=2 * L,
         dtype="float32", param_dtype="float32", attention_impl="xla")
     params = seeded_params(torch, cfg)
-    batch = scoring_batch(torch, cfg, SHARD_ENCDEC_BATCH, SHARD_ENCDEC_SEQ)
-    targets = batch["targets"].clone()
-    targets[0, 1:] = -1               # rows masked unevenly: the microbatch
-    targets[1, :SHARD_ENCDEC_SEQ // 2] = -1   # split shows in every metric
-    batch["targets"] = targets
+    batch = _masked_targets(scoring_batch(torch, cfg, SHARD_ENCDEC_BATCH,
+                                          SHARD_ENCDEC_SEQ), SHARD_ENCDEC_SEQ)
     run = RunConfig(model=cfg, shape=ShapeConfig(
         "smoke", "train", SHARD_ENCDEC_SEQ, SHARD_ENCDEC_BATCH),
         sharding=ShardingConfig(policy="fsdp"), seed=SEED,
@@ -3363,6 +3475,136 @@ def vlm_references(torch) -> dict:
     ref = {f"e_{dt}": r for dt, r in serve_references(
         torch, cfg, params, prompt, SHARD_VLM_SEQ + SHARD_TICKS + 1).items()}
     ref["e_params"] = params
+    torch.cuda.synchronize()
+    return ref
+
+
+def _masked_targets(batch, seq: int):
+    """``batch`` with rows masked unevenly (row 0 after its first token,
+    row 1's first half), so the microbatch split shows in every metric."""
+    targets = batch["targets"].clone()
+    targets[0, 1:] = -1
+    targets[1, :seq // 2] = -1
+    return dict(batch, targets=targets)
+
+
+def rwkv_references(torch) -> dict:
+    """Phase 20's (f) on one device on the card, on the seeded params the
+    ranks get: rwkv6-3b at 2 layers, its f32 loss and 2-microbatch train
+    step (the chunk path), its bf16 loss through the WKV6 kernel (2
+    launches), then its prefill and SHARD_TICKS greedy decode steps, bf16
+    and f32."""
+    from repro_torch.config import RunConfig, ShapeConfig, ShardingConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.models import loss_fn
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train import make_opt_state, make_train_step
+    B, S = SHARD_RWKV_BATCH, SHARD_RWKV_SEQ
+    ref = {}
+    cfg = get_config(SHARD_RWKV_ARCH).replace(
+        num_layers=SHARD_LAYERS, dtype="float32", param_dtype="float32",
+        scan_impl="xla")
+    params = seeded_params(torch, cfg)
+    batch = _masked_targets(scoring_batch(torch, cfg, B, S), S)
+    run = RunConfig(model=cfg, shape=ShapeConfig("smoke", "train", S, B),
+                    sharding=ShardingConfig(policy="fsdp"), seed=SEED,
+                    microbatches=SHARD_MICRO)
+    with torch.no_grad():
+        ref["f_loss"] = float(loss_fn(cfg, params, batch)[0])
+    opt = make_opt_state(run, params)
+    _, _, metrics = make_train_step(run)(params, opt, batch)
+    ref["f_metrics"] = {k: float(v) for k, v in metrics.items()}
+    ref["f_m"], ref["f_v"] = tree_leaves(opt["m"]), tree_leaves(opt["v"])
+    ref["f_run"], ref["f_cfg"], ref["f_batch"] = run, cfg, batch
+    ref["f_params"] = params          # lr_at(0) is 0: the step moved none
+    del opt
+    cfg16 = cfg.replace(dtype="bfloat16", param_dtype="bfloat16",
+                        scan_impl="pallas")
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    n0 = rw.rwkv6_scan.launches
+    with torch.no_grad():
+        ref["f_loss16"] = float(loss_fn(cfg16, p16, batch)[0])
+    if rw.rwkv6_scan.launches - n0 != SHARD_LAYERS:
+        raise AssertionError("(f)'s one-device bf16 loss took "
+                             f"{rw.rwkv6_scan.launches - n0} WKV6 launches")
+    ref["f_cfg16"] = cfg16
+    del p16
+    prompt = {k: batch[k] for k in ("tokens", "positions")}
+    for dt, r in serve_references(torch, cfg, params, prompt,
+                                  S + SHARD_TICKS + 1).items():
+        ref[f"f_{dt}"] = r
+    torch.cuda.synchronize()
+    return ref
+
+
+def _serve_run(torch, cfg, params, prompt, max_len: int, feed=None):
+    """Prefill of ``prompt`` and SHARD_TICKS decode steps (greedy, or fed
+    ``feed``) on one device: the last prefill logits, each step's, the
+    tokens and the cache after the steps."""
+    from repro_torch.models import prefill
+    with torch.inference_mode():
+        lg, cache = prefill(cfg, params, prompt, max_len)
+        first = lg[:, -1].float().clone()
+        toks, steps, _, cache = decode_ticks(torch, cfg, params, lg, cache,
+                                             SHARD_TICKS, feed=feed)
+    return dict(prefill=first, steps=torch.stack(steps), tokens=toks,
+                cache=cache)
+
+
+def jamba_references(torch) -> dict:
+    """Phase 20's (g) on one device on the card, on the seeded bf16 params
+    the ranks get: jamba without experts at one superblock, its loss
+    through the scan and flash kernels (7 + 1 launches), its prefill and
+    SHARD_TICKS greedy decode steps, then a SHARD_SEQ_PROMPT-token
+    prompt's prefill at ``max_len`` SHARD_SEQ_MAX_LEN and SHARD_TICKS
+    greedy steps, with the cache after them.  Both serving runs are also
+    made in f32 on the same weights (a transient f32 copy, 36 GB, dropped
+    before the ranks start), fed the bf16 run's tokens: the function the
+    bf16 runs approximate, with the one-device bf16 run's relative RMS
+    error against it (``single_f32_errs``; the cache entries' too), the
+    floor a sharded bf16 run is held to."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mamba_scan as mb
+    from repro_torch.models import loss_fn
+    from repro_torch.optim.adamw import tree_map
+    ref = {}
+    cfg = get_config(JAMBA_ARCH).replace(
+        moe=None, num_layers=SHARD_JAMBA_LAYERS, dtype="bfloat16",
+        param_dtype="bfloat16", attention_impl="pallas", scan_impl="pallas")
+    params = seeded_params(torch, cfg)
+    batch = scoring_batch(torch, cfg, SHARD_JAMBA_BATCH, SHARD_JAMBA_SEQ)
+    n0 = mb.mamba_scan.launches
+    with torch.no_grad():
+        ref["g_loss"] = float(loss_fn(cfg, params, batch)[0])
+    if mb.mamba_scan.launches - n0 != SHARD_JAMBA_LAYERS - 1:
+        raise AssertionError("(g)'s one-device loss took "
+                             f"{mb.mamba_scan.launches - n0} scan launches")
+    ref["g_cfg"], ref["g_batch"], ref["g_params"] = cfg, batch, params
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    seq = scoring_batch(torch, cfg, 1, SHARD_SEQ_PROMPT)
+    for key, b, max_len in (
+            ("g_bfloat16", batch, SHARD_JAMBA_SEQ + SHARD_TICKS + 1),
+            ("g_seq", seq, SHARD_SEQ_MAX_LEN)):
+        prompt = {k: b[k] for k in ("tokens", "positions")}
+        r16 = _serve_run(torch, cfg, params, prompt, max_len)
+        r32 = _serve_run(torch, cfg32, p32, prompt, max_len, r16["tokens"])
+        ref[key] = dict(
+            cfg=cfg, prompt=prompt, max_len=max_len, prefill=r16["prefill"],
+            steps=r16["steps"], tokens=r16["tokens"],
+            f32_prefill=r32["prefill"], f32_steps=r32["steps"],
+            single_f32_errs=[rms_rel_err(torch, r16["prefill"],
+                                         r32["prefill"])] + [
+                rms_rel_err(torch, a, b)
+                for a, b in zip(r16["steps"], r32["steps"])])
+        if key == "g_seq":
+            ref[key]["cache"], ref[key]["f32_cache"] = r16["cache"], \
+                r32["cache"]
+        del r16, r32
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return ref
 
@@ -3429,16 +3671,23 @@ def _sync_ms(torch, fn):
 def _reset_launches():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import mamba_scan as mb
+    from repro_torch.kernels import rwkv6_scan as rw
     fa.flash_attention.route_launches = dict.fromkeys(fa.ROUTES, 0)
     gm.gmm.route_launches = dict.fromkeys(gm.ROUTES, 0)
+    rw.rwkv6_scan.launches = mb.mamba_scan.launches = 0
 
 
 def _launches() -> dict:
-    """This rank's kernel launches by route since ``_reset_launches``."""
+    """This rank's kernel launches (by route where a kernel has routes)
+    since ``_reset_launches``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import mamba_scan as mb
+    from repro_torch.kernels import rwkv6_scan as rw
     return dict(flash=dict(fa.flash_attention.route_launches),
-                gmm=dict(gm.gmm.route_launches))
+                gmm=dict(gm.gmm.route_launches),
+                wkv=rw.rwkv6_scan.launches, scan=mb.mamba_scan.launches)
 
 
 def _distribute_as(tree, shardings, dtype):
@@ -3490,7 +3739,7 @@ def _sharded_serve(torch, mesh, ref: dict, params, policy: str) -> dict:
         pre_launch = _launches()
         first = lg.full_tensor()[:, -1].float()
         toks = [first.argmax(-1, keepdim=True)]
-        errs, tick_ms = [], []
+        errs, tick_ms, f32_errs = [], [], []
         _reset_launches()
         for i in range(SHARD_TICKS):
             tok = toks[-1] if f32 else feed[:, i:i + 1]
@@ -3500,6 +3749,8 @@ def _sharded_serve(torch, mesh, ref: dict, params, policy: str) -> dict:
             tick_ms.append(ms)
             full = lg.full_tensor()[:, 0].float()
             errs.append(err(full, ref["steps"][i]))
+            if "f32_steps" in ref:
+                f32_errs.append(rms_rel_err(torch, full, ref["f32_steps"][i]))
             toks.append(full.argmax(-1, keepdim=True))
         tick_launch = _launches()
     out = dict(prefill_ms=pre_ms, decode_ms=tick_ms, launches=pre_launch,
@@ -3507,6 +3758,9 @@ def _sharded_serve(torch, mesh, ref: dict, params, policy: str) -> dict:
                prefill_err=err(first, ref["prefill"]), step_errs=errs,
                tokens_equal=bool(torch.equal(torch.cat(toks, 1).cpu(),
                                              ref["tokens"].cpu())))
+    if "f32_steps" in ref:
+        out["f32_errs"] = [rms_rel_err(torch, first, ref["f32_prefill"])] + \
+            f32_errs
     del pd, bd, cache
     torch.cuda.empty_cache()
     return out
@@ -3621,48 +3875,7 @@ def dense_moe_rank_work(torch, mesh, dev, job: dict) -> dict:
 def encdec_rank_work(torch, mesh, dev, job: dict) -> dict:
     """(d) seamless-m4t-medium's 2-microbatch ``fsdp`` train step and its
     serving, on this rank."""
-    from torch.distributed.tensor.debug import CommDebugMode
-    from repro_torch.launch.op_analysis import OpAnalysis
-    from repro_torch.models import loss_fn, param_axes
-    from repro_torch.optim.adamw import tree_leaves
-    from repro_torch.parallel.context import sharding_ctx
-    from repro_torch.parallel.sharding import (
-        batch_shardings, distribute_tree, make_ctx, tree_shardings,
-    )
-    from repro_torch.train import make_opt_state, make_train_step
-    res = {}
-    # (d) seamless-m4t-medium: the 2-microbatch train step, fsdp
-    run, cfg = job["d_run"], job["d_cfg"]
-    ctx = make_ctx(mesh, run.sharding)
-    p_axes = param_axes(cfg)
-    pd = distribute_tree(job["d_params"], tree_shardings(ctx, p_axes))
-    od = make_opt_state(run, pd)
-    bd = distribute_tree(job["d_batch"], batch_shardings(ctx, job["d_batch"]))
-    step = make_train_step(run)
-    comm, oa = CommDebugMode(), OpAnalysis()
-    with sharding_ctx(ctx):
-        with torch.no_grad():
-            loss = float(loss_fn(cfg, pd, bd)[0].full_tensor())
-        with comm, oa:
-            (_, _, metrics), step_ms = _sync_ms(torch, lambda: step(pd, od,
-                                                                   bd))
-        m_err = max(_block_err(g, w) for g, w in zip(
-            tree_leaves(od["m"]), job["d_m"]))
-        v_err = max(_block_err(g, w) for g, w in zip(
-            tree_leaves(od["v"]), job["d_v"]))
-    rec = oa.result()
-    res["d"] = dict(
-        loss_err=_rel(loss, job["d_loss"]),
-        metric_errs={k: _rel(float(metrics[k]), job["d_metrics"][k])
-                     for k in ("loss", "grad_norm", "ce", "z", "aux")},
-        m_err=m_err, v_err=v_err, step_ms=step_ms,
-        comm_counts={str(k).split(".")[-1]: v
-                     for k, v in comm.get_comm_counts().items()},
-        coll_bytes={k: rec[f"coll_{k}"] for k in (
-            "all-gather", "reduce-scatter", "all-reduce", "all-to-all")},
-        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
-    del pd, od, bd, step, oa, metrics
-    torch.cuda.empty_cache()
+    res = {"d": _train_check(torch, mesh, dev, job, "d")}
     for dt in ("bfloat16", "float32"):
         res[f"d_{dt}"] = _sharded_serve(torch, mesh, job[f"d_{dt}"],
                                         job["d_params"], "baseline")
@@ -3675,6 +3888,195 @@ def vlm_rank_work(torch, mesh, dev, job: dict) -> dict:
     return {f"e_{dt}": _sharded_serve(torch, mesh, job[f"e_{dt}"],
                                       job["e_params"], "baseline")
             for dt in ("bfloat16", "float32")}
+
+
+def _train_check(torch, mesh, dev, job: dict, key: str) -> dict:
+    """An ``fsdp`` train step of ``job``'s ``<key>_run`` on this rank,
+    against the one-device step: the loss before it, every metric, the
+    moments' block errors, ms of the step, its collective bytes by kind
+    and counts, the peak GB."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.models import loss_fn, param_axes
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel.context import sharding_ctx
+    from repro_torch.parallel.sharding import (
+        batch_shardings, distribute_tree, make_ctx, tree_shardings,
+    )
+    from repro_torch.train import make_opt_state, make_train_step
+    run, cfg = job[f"{key}_run"], job[f"{key}_cfg"]
+    ctx = make_ctx(mesh, run.sharding)
+    pd = distribute_tree(job[f"{key}_params"],
+                         tree_shardings(ctx, param_axes(cfg)))
+    od = make_opt_state(run, pd)
+    batch = job[f"{key}_batch"]
+    bd = distribute_tree(batch, batch_shardings(ctx, batch))
+    step = make_train_step(run)
+    comm, oa = CommDebugMode(), OpAnalysis()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with sharding_ctx(ctx):
+        with torch.no_grad():
+            loss = float(loss_fn(cfg, pd, bd)[0].full_tensor())
+        with comm, oa:
+            (_, _, metrics), step_ms = _sync_ms(torch, lambda: step(pd, od,
+                                                                   bd))
+        m_err = max(_block_err(g, w) for g, w in zip(
+            tree_leaves(od["m"]), job[f"{key}_m"]))
+        v_err = max(_block_err(g, w) for g, w in zip(
+            tree_leaves(od["v"]), job[f"{key}_v"]))
+    rec = oa.result()
+    out = dict(
+        loss_err=_rel(loss, job[f"{key}_loss"]),
+        metric_errs={k: _rel(float(metrics[k]), job[f"{key}_metrics"][k])
+                     for k in ("loss", "grad_norm", "ce", "z", "aux")},
+        m_err=m_err, v_err=v_err, step_ms=step_ms,
+        comm_counts={str(k).split(".")[-1]: v
+                     for k, v in comm.get_comm_counts().items()},
+        coll_bytes={k: rec[f"coll_{k}"] for k in (
+            "all-gather", "reduce-scatter", "all-reduce", "all-to-all")},
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del pd, od, bd, step, oa, metrics
+    torch.cuda.empty_cache()
+    return out
+
+
+def rwkv_rank_work(torch, mesh, dev, job: dict) -> dict:
+    """(f) rwkv6-3b on this rank: the 2-microbatch ``fsdp`` train step in
+    f32, the ``fsdp`` bf16 loss through WKV6 on the rank's heads, then
+    ``baseline`` serving, bf16 and f32."""
+    from repro_torch.config import ShardingConfig
+    from repro_torch.models import loss_fn, param_axes
+    from repro_torch.parallel.context import sharding_ctx
+    from repro_torch.parallel.sharding import (
+        batch_shardings, distribute_tree, make_ctx, tree_shardings,
+    )
+    res = {"f": _train_check(torch, mesh, dev, job, "f")}
+    cfg = job["f_cfg16"]
+    ctx = make_ctx(mesh, ShardingConfig(policy="fsdp"))
+    pd = _distribute_as(job["f_params"], tree_shardings(ctx, param_axes(cfg)),
+                        torch.bfloat16)
+    bd = distribute_tree(job["f_batch"], batch_shardings(ctx, job["f_batch"]))
+    with sharding_ctx(ctx), torch.no_grad():
+        loss_fn(cfg, pd, bd)                    # its DTensor ops' first run
+        _reset_launches()
+        loss_t, ms = _sync_ms(torch, lambda: loss_fn(cfg, pd, bd)[0])
+        got = _launches()
+    loss = float(loss_t.full_tensor())
+    res["f_loss16"] = dict(loss=loss, loss_err=_rel(loss, job["f_loss16"]),
+                           loss_ms=ms, launches=got)
+    del pd, bd
+    torch.cuda.empty_cache()
+    for dt in ("bfloat16", "float32"):
+        res[f"f_{dt}"] = _sharded_serve(torch, mesh, job[f"f_{dt}"],
+                                        job["f_params"], "baseline")
+    return res
+
+
+def _shard_seq_serve(torch, mesh, ref: dict, params) -> dict:
+    """``ref``'s prompt prefilled and SHARD_TICKS ticks fed its tokens,
+    under the ``shard_seq`` decode rules (``baseline`` weights): ms of the
+    prefill and the ticks, the prefill's launches, the logits' relative
+    RMS errors against the one-device bf16 run (``errs``) and its f32
+    twin (``f32_errs``), and for every cache entry this rank's block's
+    relative RMS error against the one-device bf16 cache's slice
+    (``rms``), its and that slice's against the f32 cache's slice
+    (``f32_rms``, ``single_f32_rms``), and whether the same rows of it
+    were written (nonzero)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.config import ShardingConfig
+    from repro_torch.models import decode_step, param_axes, prefill
+    from repro_torch.parallel.context import distribute, sharding_ctx
+    from repro_torch.parallel.sharding import (
+        batch_shardings, distribute_tree, make_ctx, tree_shardings,
+    )
+    cfg = ref["cfg"]
+    ctx = make_ctx(mesh, ShardingConfig(policy="baseline", shard_seq=True),
+                   decode=True)
+    pd = _distribute_as(params, tree_shardings(ctx, param_axes(cfg)),
+                        getattr(torch, cfg.dtype))
+    bd = distribute_tree(ref["prompt"], batch_shardings(ctx, ref["prompt"]))
+    feed = ref["tokens"]
+    rms = functools.partial(rms_rel_err, torch)
+
+    with sharding_ctx(ctx), torch.no_grad():
+        _reset_launches()
+        (lg, cache), pre_ms = _sync_ms(torch, lambda: prefill(
+            cfg, pd, bd, ref["max_len"]))
+        pre_launch = _launches()
+        first = lg.full_tensor()[:, -1]
+        errs, f32_errs = [rms(first, ref["prefill"])], \
+            [rms(first, ref["f32_prefill"])]
+        tick_ms = []
+        for i in range(SHARD_TICKS):
+            tok = distribute(feed[:, i:i + 1].to(torch.int32), "batch", None)
+            (lg, cache), ms = _sync_ms(torch, lambda: decode_step(
+                cfg, pd, tok, cache))
+            tick_ms.append(ms)
+            full = lg.full_tensor()[:, 0]
+            errs.append(rms(full, ref["steps"][i]))
+            f32_errs.append(rms(full, ref["f32_steps"][i]))
+    blocks = {}
+    for k, d in cache.items():
+        want, want32 = (distribute_tensor(
+            c[k], d.device_mesh, d.placements, src_data_rank=None).to_local()
+            for c in (ref["cache"], ref["f32_cache"]))
+        got = d.to_local()
+        if k == "index":
+            blocks[k] = dict(equal=bool(torch.equal(got, want)))
+            continue
+        same_rows = True
+        if k in ("k", "v"):             # [nb, B, rows, kv]: which rows
+            dims = (0, 1, 3)
+            same_rows = bool(torch.equal(got.abs().amax(dim=dims) > 0,
+                                         want.abs().amax(dim=dims) > 0))
+        blocks[k] = dict(rms=rms(got, want), f32_rms=rms(got, want32),
+                         single_f32_rms=rms(want, want32),
+                         shape=list(got.shape),
+                         placements=[str(p) for p in d.placements],
+                         same_rows=same_rows)
+    out = dict(prefill_ms=pre_ms, decode_ms=tick_ms, launches=pre_launch,
+               errs=errs, f32_errs=f32_errs, blocks=blocks)
+    del pd, bd, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def jamba_rank_work(torch, mesh, dev, job: dict) -> dict:
+    """(g) jamba without experts on this rank: the ``baseline`` loss
+    (its all-to-all bytes counted), serving, and the ``shard_seq``
+    decode."""
+    from repro_torch.config import ShardingConfig
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.models import loss_fn, param_axes
+    from repro_torch.parallel.context import sharding_ctx
+    from repro_torch.parallel.sharding import (
+        batch_shardings, distribute_tree, make_ctx, tree_shardings,
+    )
+    cfg, res = job["g_cfg"], {}
+    ctx = make_ctx(mesh, ShardingConfig(policy="baseline"))
+    pd = distribute_tree(job["g_params"], tree_shardings(ctx, param_axes(cfg)))
+    bd = distribute_tree(job["g_batch"], batch_shardings(ctx, job["g_batch"]))
+    oa = OpAnalysis()
+    with sharding_ctx(ctx), torch.no_grad():
+        with oa:
+            loss_fn(cfg, pd, bd)
+        _reset_launches()
+        loss_t, ms = _sync_ms(torch, lambda: loss_fn(cfg, pd, bd)[0])
+        got = _launches()
+    loss = float(loss_t.full_tensor())
+    rec = oa.result()
+    res["g"] = dict(loss=loss, loss_err=_rel(loss, job["g_loss"]), loss_ms=ms,
+                    launches=got,
+                    coll_bytes={k: rec[f"coll_{k}"] for k in (
+                        "all-gather", "reduce-scatter", "all-reduce",
+                        "all-to-all")})
+    del pd, bd, oa
+    torch.cuda.empty_cache()
+    res["g_bfloat16"] = _sharded_serve(torch, mesh, job["g_bfloat16"],
+                                       job["g_params"], "baseline")
+    res["g_seq"] = _shard_seq_serve(torch, mesh, job["g_seq"],
+                                    job["g_params"])
+    return res
 
 
 class CardPeak:
@@ -3751,7 +4153,9 @@ def run_shard_ranks(torch, job: dict) -> list:
 # round's params
 SHARD_ROUNDS = {1: ("(a)-(c)", shard_references, dense_moe_rank_work),
                 2: ("(d)", encdec_references, encdec_rank_work),
-                3: ("(e)", vlm_references, vlm_rank_work)}
+                3: ("(e)", vlm_references, vlm_rank_work),
+                4: ("(f)", rwkv_references, rwkv_rank_work),
+                5: ("(g)", jamba_references, jamba_rank_work)}
 
 
 def shard_round(torch, job: dict, backend: str, what: str):
@@ -3796,13 +4200,121 @@ def check_serve(r: dict, key: str, prefill: dict, tick: dict) -> None:
         raise AssertionError(f"rank {r['rank']} {key} bf16: {got}")
 
 
+def check_train(r: dict, key: str) -> None:
+    """A rank's ``_train_check`` result: the loss, every metric (1e-5) and
+    the moments (1e-4 of each leaf's scale) as the one-device
+    2-microbatch step's, the batch moved by an all-to-all and the grads
+    reduce-scattered."""
+    d = r[key]
+    if d["loss_err"] > 1e-5 or max(d["metric_errs"].values()) > 1e-5 \
+            or d["m_err"] > 1e-4 or d["v_err"] > 1e-4:
+        raise AssertionError(f"rank {r['rank']} ({key}) 2-microbatch train "
+                             f"step: {d}")
+    if d["coll_bytes"]["all-to-all"] <= 0 or \
+            d["coll_bytes"]["reduce-scatter"] <= 0:
+        raise AssertionError(f"rank {r['rank']} ({key}): no all-to-all of "
+                             f"the batch or reduce-scatter of the grads: "
+                             f"{d['coll_bytes']}")
+
+
+def check_round(n: int, ranks: list, ref_errs: dict) -> None:
+    """Hold round ``n``'s rank results (``SHARD_ROUNDS``) to their limits
+    and launch counts (``ref_errs``: the round's one-device bf16 errors
+    against f32, where it has them); raise on the first that fails."""
+    L, n_mamba = SHARD_LAYERS, SHARD_JAMBA_LAYERS - 1
+    if n == 1:
+        for r in ranks:
+            a = r["a"]
+            if a["loss_err"] > 1e-5 or a["m_err"] > 1e-4 or a["v_err"] > 1e-4:
+                raise AssertionError(f"rank {r['rank']} (a) train step: loss "
+                                     f"{a['loss_err']}, moments {a['m_err']} "
+                                     f"{a['v_err']}")
+            if not a["comm_counts"] or a["coll_bytes"]["reduce-scatter"] <= 0:
+                raise AssertionError(f"rank {r['rank']} (a): no "
+                                     f"reduce-scatter of the fsdp grads: {a}")
+            check_serve(r, "b_bfloat16", {"wgmma": L}, {})
+            check_serve(r, "b_float32", {"f32": L}, {})
+            c16, c32 = r["c_bfloat16"], r["c_float32"]
+            for d in c16["keep_differences"] + c32["keep_differences"]:
+                print("routing difference "
+                      + json.dumps(dict(d, rank=r["rank"])), flush=True)
+            if c16["launches"]["gmm"]["wgmma"] != 3 * L or \
+                    c16["launches"]["flash"]["wgmma"] != L or \
+                    c32["launches"]["gmm"]["mma_sync"] != 3 * L:
+                raise AssertionError(f"rank {r['rank']} (c) launches "
+                                     f"{c16['launches']} {c32['launches']}")
+            if c32["loss_err"] > 1e-5 or not c32["keep_equal"] or \
+                    c16["loss_err"] > RMS_TOL["bfloat16"]:
+                raise AssertionError(f"rank {r['rank']} (c): f32 {c32}, bf16 "
+                                     f"{c16['loss_err']}")
+    if n == 2:
+        for r in ranks:
+            check_train(r, "d")
+            # 2 encoder, 2 decoder self, 2 cross in the prefill; cross a tick
+            check_serve(r, "d_bfloat16", {"wgmma": 3 * L}, {"wgmma": L})
+            check_serve(r, "d_float32", {"f32": 3 * L}, {"f32": L})
+    if n == 3:
+        for r in ranks:
+            check_serve(r, "e_bfloat16", {"wgmma": L}, {})
+            check_serve(r, "e_float32", {"f32": L}, {})
+    if n == 4:
+        for r in ranks:
+            check_train(r, "f")
+            f16 = r["f_loss16"]
+            if f16["launches"]["wkv"] != L or \
+                    f16["loss_err"] > RMS_TOL["bfloat16"]:
+                raise AssertionError(f"rank {r['rank']} (f) bf16 loss: {f16}")
+            for dt in ("bfloat16", "float32"):
+                # the prefill takes the state-returning chunk path
+                check_serve(r, f"f_{dt}", {}, {})
+                if r[f"f_{dt}"]["launches"]["wkv"]:
+                    raise AssertionError(f"rank {r['rank']} (f) {dt} prefill "
+                                         f"launched WKV6")
+    if n == 5:
+        for r in ranks:
+            g = r["g"]
+            if g["launches"]["scan"] != n_mamba or \
+                    {k: v for k, v in g["launches"]["flash"].items() if v} != \
+                    {"wgmma": 1} or g["loss_err"] > RMS_TOL["bfloat16"] or \
+                    g["coll_bytes"]["all-to-all"] <= 0:
+                raise AssertionError(f"rank {r['rank']} (g) loss: {g}")
+            sv = r["g_bfloat16"]
+            pre = {k: v for k, v in sv["launches"]["flash"].items() if v}
+            if pre != {"wgmma": 1} or sv["launches"]["scan"] != n_mamba:
+                raise AssertionError(f"rank {r['rank']} (g) prefill launches "
+                                     f"{sv['launches']}")
+            check_floor(r, "(g) serving", sv["f32_errs"],
+                        ref_errs["g_bfloat16"])
+            sq = r["g_seq"]
+            check_floor(r, "(g) shard_seq decode", sq["f32_errs"],
+                        ref_errs["g_seq"])
+            rows = sq["blocks"]["k"]["shape"][2]
+            if rows != SHARD_SEQ_MAX_LEN // SHARD_MESH[0] or \
+                    not sq["blocks"]["index"]["equal"] or any(
+                        not b["same_rows"] or
+                        b["f32_rms"] > BF16_FLOOR * b["single_f32_rms"]
+                        for k, b in sq["blocks"].items() if k != "index"):
+                raise AssertionError(f"rank {r['rank']} (g) shard_seq cache "
+                                     f"blocks: {sq['blocks']}")
+
+
+def check_floor(r: dict, what: str, errs: list, single: list) -> None:
+    """A sharded bf16 run's relative RMS errors against the one-device f32
+    run of the same weights, held to BF16_FLOOR times the one-device bf16
+    run's own (``single``): as close to the function as one device."""
+    if max(errs) > BF16_FLOOR * max(single):
+        raise AssertionError(f"rank {r['rank']} {what}: bf16 errors against "
+                             f"f32 {errs}, one device's {single}")
+
+
 def sharded_phase(torch, card: str) -> dict:
-    """Phase 20: the dense, MoE, enc-dec and VLM families sharded on a
-    (data 2, model 2) DeviceMesh, each sub-phase held to the same run on
-    one device, in the rounds of rank processes of ``SHARD_ROUNDS``; see
-    the module docstring."""
+    """Phase 20: every family sharded on a (data 2, model 2) DeviceMesh,
+    each sub-phase held to the same run on one device, in the rounds of
+    rank processes of ``SHARD_ROUNDS``; see the module docstring."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import mamba_scan as mb
+    from repro_torch.kernels import rwkv6_scan as rw
     cards = torch.cuda.device_count()
     backend = "nccl" if cards >= SHARD_RANKS else "gloo"
     print(f"sharded: backend {backend} world {SHARD_RANKS} cards {cards} "
@@ -3813,61 +4325,25 @@ def sharded_phase(torch, card: str) -> dict:
     free, total = torch.cuda.mem_get_info(0)
     print(f"sharded: {(total - free) / 1e9:.2f} GB of {total / 1e9:.2f} in "
           f"use on card 0 at the start", flush=True)
-    kcases = shard_kernel_cases(torch, fa, gm)
+    kcases = shard_kernel_cases(torch, fa, gm, rw, mb)
     L = SHARD_LAYERS
     rounds = {}
     for n, (what, refs, _) in SHARD_ROUNDS.items():
         t0 = time.perf_counter()
         job = dict(refs(torch), round=n)
         ref_s = time.perf_counter() - t0
+        floors = {k: v["single_f32_errs"] for k, v in job.items()
+                  if isinstance(v, dict) and "single_f32_errs" in v}
         ranks, ranks_s, peak = shard_round(torch, job, backend, what)
         del job
         gc.collect()
         torch.cuda.ipc_collect()
         torch.cuda.empty_cache()
         rounds[n] = dict(references_s=ref_s, ranks_s=ranks_s,
-                         card_peak_gb=peak, ranks=ranks)
-    for r in rounds[1]["ranks"]:
-        a = r["a"]
-        if a["loss_err"] > 1e-5 or a["m_err"] > 1e-4 or a["v_err"] > 1e-4:
-            raise AssertionError(f"rank {r['rank']} (a) train step: loss "
-                                 f"{a['loss_err']}, moments {a['m_err']} "
-                                 f"{a['v_err']}")
-        if not a["comm_counts"] or a["coll_bytes"]["reduce-scatter"] <= 0:
-            raise AssertionError(f"rank {r['rank']} (a): no reduce-scatter "
-                                 f"of the fsdp grads: {a}")
-        check_serve(r, "b_bfloat16", {"wgmma": L}, {})
-        check_serve(r, "b_float32", {"f32": L}, {})
-        c16, c32 = r["c_bfloat16"], r["c_float32"]
-        for d in c16["keep_differences"] + c32["keep_differences"]:
-            print("routing difference " + json.dumps(dict(d, rank=r["rank"])),
-                  flush=True)
-        if c16["launches"]["gmm"]["wgmma"] != 3 * L or \
-                c16["launches"]["flash"]["wgmma"] != L or \
-                c32["launches"]["gmm"]["mma_sync"] != 3 * L:
-            raise AssertionError(f"rank {r['rank']} (c) launches "
-                                 f"{c16['launches']} {c32['launches']}")
-        if c32["loss_err"] > 1e-5 or not c32["keep_equal"] or \
-                c16["loss_err"] > RMS_TOL["bfloat16"]:
-            raise AssertionError(f"rank {r['rank']} (c): f32 {c32}, bf16 "
-                                 f"{c16['loss_err']}")
-    for r in rounds[2]["ranks"]:
-        d = r["d"]
-        if d["loss_err"] > 1e-5 or max(d["metric_errs"].values()) > 1e-5 \
-                or d["m_err"] > 1e-4 or d["v_err"] > 1e-4:
-            raise AssertionError(f"rank {r['rank']} (d) 2-microbatch train "
-                                 f"step: {d}")
-        if d["coll_bytes"]["all-to-all"] <= 0 or \
-                d["coll_bytes"]["reduce-scatter"] <= 0:
-            raise AssertionError(f"rank {r['rank']} (d): no all-to-all of "
-                                 f"the batch or reduce-scatter of the grads: "
-                                 f"{d['coll_bytes']}")
-        # 2 encoder, 2 decoder self, 2 cross in the prefill; cross a tick
-        check_serve(r, "d_bfloat16", {"wgmma": 3 * L}, {"wgmma": L})
-        check_serve(r, "d_float32", {"f32": 3 * L}, {"f32": L})
-    for r in rounds[3]["ranks"]:
-        check_serve(r, "e_bfloat16", {"wgmma": L}, {})
-        check_serve(r, "e_float32", {"f32": L}, {})
+                         card_peak_gb=peak, ranks=ranks,
+                         single_f32_errs=floors)
+    for n, rd in rounds.items():
+        check_round(n, rd["ranks"], rd["single_f32_errs"])
     res = dict(card=card, backend=backend, world=SHARD_RANKS, cards=cards,
                mesh=SHARD_MESH, layers=L, kernel_cases=kcases,
                seconds=time.perf_counter() - t_phase,
@@ -4043,8 +4519,8 @@ def main() -> int:
     phase(f"ep {EP_ARCH}")
     epres = ep_moe_phase(torch, card)
 
-    # 20. the dense, MoE, enc-dec and VLM families sharded on a (data 2,
-    # model 2) mesh: train steps, prefill and decode, the MoE loss
+    # 20. every family sharded on a (data 2, model 2) mesh: train steps,
+    # prefill and decode (on a sequence-sharded cache too), the MoE loss
     phase("sharded")
     shres = sharded_phase(torch, card)
 
@@ -4097,6 +4573,8 @@ def main() -> int:
         "sharded_vlm_prefill_launches_per_rank": [
             r["e_bfloat16"]["launches"]["flash"]
             for r in shres["rounds"][3]["ranks"]],
+        "sharded_jamba_loss_launches_per_rank": [
+            r["g"]["launches"]["flash"] for r in shres["rounds"][5]["ranks"]],
         "sharded_cases": shres["kernel_cases"]["flash"],
     }, {
         "name": "rwkv6_scan",
@@ -4105,6 +4583,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/rwkv6_scan.py:31",
         "tpu_kernel": "kernels/rwkv6_scan.py:_wkv_kernel",
         "launches": fwd["wkv_launches"],
+        "sharded_loss_launches_per_rank": [
+            r["f_loss16"]["launches"]["wkv"]
+            for r in shres["rounds"][4]["ranks"]],
+        "sharded_cases": shres["kernel_cases"]["rwkv6_scan"],
         "max_abs_err": max(c["max_err"] for c in wcases),
         "max_err": max(c["max_err"] for c in wcases),
         "ms": wbig["kernel_ms"],
@@ -4120,6 +4602,12 @@ def main() -> int:
         "tpu_kernel": "kernels/mamba_scan.py:_mamba_kernel",
         "launches": jfwd["scan_launches"],
         "serve_launches": jserve["scan_launches"],
+        "sharded_loss_launches_per_rank": [
+            r["g"]["launches"]["scan"] for r in shres["rounds"][5]["ranks"]],
+        "sharded_prefill_launches_per_rank": [
+            r["g_bfloat16"]["launches"]["scan"]
+            for r in shres["rounds"][5]["ranks"]],
+        "sharded_cases": shres["kernel_cases"]["mamba_scan"],
         "max_abs_err": max(c["max_err"] for c in mcases),
         "max_err": max(c["max_err"] for c in mcases),
         "ms": mbig["kernel_ms"],

@@ -21,11 +21,15 @@ Nothing is compiled, so there is no ``memory_analysis`` or
 ``cost_analysis``: the counts are of the eager program (its traffic is
 unfused), and ``trace_s`` (the run's wall time) takes the place of the
 reference's ``lower_s``/``compile_s``; there is no ``xla_cost_analysis``.
-The dense, MoE, enc-dec and VLM families run; RWKV6 and the hybrid raise
-(``models/model.py`` ``_check_mesh``) and their cells print ``FAIL``.  A
-train cell's 4 microbatches are the reference's global row blocks, so its
-step moves the batch once, by an all-to-all (``train/step.py``
-``_split_global``), counted with the other collectives.  A parameter
+Every family runs, so no cell of the matrix fails (jamba's train cells
+step the Mamba token loop eagerly on ``meta``, ~5 h a cell on 8 CPU
+cores); long_500k, the RWKV6 and hybrid cell that turns
+on ``shard_seq``, decodes on a cache whose rows are split over the data
+axis.  A train cell's 4 microbatches are the reference's global row
+blocks, so its step moves the batch once, by an all-to-all
+(``train/step.py`` ``_split_global``), counted with the other
+collectives, as are the hybrid's all-to-alls of in_proj's column blocks
+(``models/mamba.py`` ``_halves``).  A parameter
 whose dim a mesh axis does not divide is kept whole on that axis
 (``sanitize_shardings``: seamless-m4t-medium's vocab of 256206 on a
 16-way ``model`` axis); ``replicated`` lists each such leaf with the

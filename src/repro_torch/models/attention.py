@@ -16,7 +16,8 @@ out as the reference's three ``shard`` calls lay them (batch on the data
 axes, heads on ``model``) and the attention itself, flash or the chunked
 path, runs on each rank's own batch rows and heads (``_attend_sharded``);
 decode writes and reads each rank's block of the cache the same way
-(``_decode_sharded``).
+(``_decode_sharded``), a block of rows too on a sequence-sharded cache,
+merged across the blocks by log-sum-exp.
 """
 from __future__ import annotations
 
@@ -24,14 +25,15 @@ import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (
-    Axes, Params, apply_mrope, apply_rope, dense_init, rmsnorm, rmsnorm_init,
-    matmul, torch_dtype, use,
+    Axes, Params, apply_mrope, apply_rope, dense_init, merge_heads, rmsnorm,
+    rmsnorm_init, matmul, split_heads, torch_dtype, use,
 )
 from repro_torch.parallel.context import layout, shard
 
@@ -91,38 +93,6 @@ def _rotate(cfg: ModelConfig, t: torch.Tensor,
     return apply_rope(t, positions, cfg.rope_theta)
 
 
-def _split_heads(t: torch.Tensor, H: int, Dh: int) -> torch.Tensor:
-    """[B,S,H*Dh] -> [B,S,H,Dh].  On a mesh whose shards of the last dim
-    would cut a head (kv_dim 1024 on a 16-way axis: half a head a rank),
-    that dim is gathered first, as DTensor cannot split such a shard."""
-    B, S = t.shape[:2]
-    if not isinstance(t, DTensor):
-        return t.reshape(B, S, H, Dh)
-    n = 1
-    for i, p in enumerate(t.placements):
-        if p.is_shard(2):
-            n *= t.device_mesh.size(i)
-    if H % n:
-        t = shard(t, "batch", None, None)
-    # the grad is pinned to the heads' layout too, so that it never reaches
-    # the view's backward with a head cut across ranks
-    return shard(t.reshape(B, S, H, Dh), *_HEADS)
-
-
-def _merge_heads(o: torch.Tensor) -> torch.Tensor:
-    """[B,S,H,Dh] -> [B,S,H*Dh], laid out for the row-parallel output
-    product (columns on ``model``).  Heads held whole by every rank (the
-    axis does not divide them) are merged replicated first, and their
-    grad gathered back there, for the view's backward."""
-    B, S, H, Dh = o.shape
-    out = o.reshape(B, S, H * Dh)
-    if not isinstance(o, DTensor):
-        return out
-    if not any(p.is_shard(2) for p in o.placements):
-        out = shard(out, "batch", None, None)
-    return shard(out, "batch", None, "heads_act")
-
-
 def _project_q(cfg: ModelConfig, p: Params, x: torch.Tensor,
                positions: Optional[torch.Tensor]) -> torch.Tensor:
     """q [B,S,Hq,Dh] with qk-norm + RoPE applied."""
@@ -130,7 +100,7 @@ def _project_q(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q = matmul(x, use(p["wq"], dt, None, "heads"))
     if cfg.qkv_bias:
         q = q + use(p["bq"], dt, "heads")
-    q = _split_heads(q, cfg.num_heads, cfg.head_dim)
+    q = split_heads(q, cfg.num_heads, cfg.head_dim, "batch", None)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.rms_eps)
     return q if positions is None else _rotate(cfg, q, positions)
@@ -153,8 +123,8 @@ def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
     if cfg.qkv_bias:
         k = k + use(p["bk"], dt, "kv")
         v = v + use(p["bv"], dt, "kv")
-    k = _split_heads(k, cfg.num_kv_heads, cfg.head_dim)
-    v = _split_heads(v, cfg.num_kv_heads, cfg.head_dim)
+    k, v = (split_heads(t, cfg.num_kv_heads, cfg.head_dim, "batch", None)
+            for t in (k, v))
     if cfg.qk_norm:
         k = rmsnorm(k, p["k_norm"], cfg.rms_eps)
     if positions is not None:
@@ -290,7 +260,8 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     dt = torch_dtype(cfg.dtype)
     q, k, v = _project_qkv(cfg, p, x, positions, kv_x, kv_positions)
     o = _attend(cfg, q, k, v, causal=causal)
-    return matmul(_merge_heads(o), use(p["wo"], dt, "heads", None))
+    return matmul(merge_heads(o, "batch", None),
+                  use(p["wo"], dt, "heads", None))
 
 
 def attention_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -301,7 +272,8 @@ def attention_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q, k, v = _project_qkv(cfg, p, x, positions)
     o = _attend(cfg, q, k, v, causal=True)
     B, S = x.shape[:2]
-    out = matmul(_merge_heads(o), use(p["wo"], dt, "heads", None))
+    out = matmul(merge_heads(o, "batch", None),
+                 use(p["wo"], dt, "heads", None))
     cache = {"k": k.reshape(B, S, cfg.kv_dim), "v": v.reshape(B, S, cfg.kv_dim)}
     return out, cache
 
@@ -332,22 +304,28 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return matmul(o, use(p["wo"], dt, "heads", None)), cache_k, cache_v
 
 
-def _write_rows(k, v, cache_k, cache_v, cache_index) -> None:
+def _write_rows(k, v, cache_k, cache_v, cache_index, offset=0) -> None:
     """Row ``cache_index[b]`` of slot b of the caches := k[b], v[b], in
-    place, for the slots whose index is in range."""
+    place, for the slots whose index is in range.  The caches may be a
+    block of rows starting at row ``offset`` (a rank's block of a
+    sequence-sharded cache): a slot whose row lies outside it is not
+    written."""
     B, Smax = cache_k.shape[:2]
     bidx = torch.arange(B, device=k.device)
-    keep = (cache_index < Smax)[:, None]
-    pos = cache_index.clamp(max=Smax - 1)
-    # out-of-range slots rewrite their last row with its own value: no sync
+    row = cache_index - offset
+    keep = ((row >= 0) & (row < Smax))[:, None]
+    pos = row.clamp(0, Smax - 1)
+    # out-of-range slots rewrite a row with its own value: no sync
     cache_k[bidx, pos] = torch.where(keep, k, cache_k[bidx, pos])
     cache_v[bidx, pos] = torch.where(keep, v, cache_v[bidx, pos])
 
 
-def _decode_attend(cfg: ModelConfig, q, cache_k, cache_v, cache_index):
-    """q [B,1,Hq,Dh] against the caches' rows up to each slot's index, by
-    the heads these tensors hold (a rank's heads on a mesh) -> f32
-    [B,Hkv,G,Dh]."""
+def _decode_scores(cfg: ModelConfig, q, cache_k, cache_v, cache_index,
+                   offset: int = 0):
+    """q [B,1,Hq,Dh] against the caches' rows (rows ``offset`` on of the
+    whole cache) by the heads these tensors hold (a rank's heads on a
+    mesh): the f32 scores [B,Hkv,G,Smax], the values [B,Smax,Hkv,Dh] and
+    which rows each slot sees (up to its index) [B,1,1,Smax]."""
     B, Smax = cache_k.shape[:2]
     Dh = cfg.head_dim
     Hkv = cache_k.shape[-1] // Dh
@@ -359,11 +337,41 @@ def _decode_attend(cfg: ModelConfig, q, cache_k, cache_v, cache_index):
     qg = q.reshape(B, Hkv, G, Dh)
     s = torch.einsum("bhgd,bshd->bhgs", qg.float() * Dh ** -0.5, kk.float())
     # mask positions beyond each slot's index (index = this token's slot)
-    valid = (torch.arange(Smax, device=q.device)[None, :]
-             <= cache_index[:, None])[:, None, None, :]
-    s = torch.where(valid, s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
+    rows = offset + torch.arange(Smax, device=q.device)
+    valid = (rows[None, :] <= cache_index[:, None])[:, None, None, :]
+    return s, vv, valid
+
+
+def _decode_attend(cfg: ModelConfig, q, cache_k, cache_v, cache_index):
+    """q [B,1,Hq,Dh] against the caches' rows up to each slot's index, by
+    the heads these tensors hold (a rank's heads on a mesh) -> f32
+    [B,Hkv,G,Dh]."""
+    s, vv, valid = _decode_scores(cfg, q, cache_k, cache_v, cache_index)
+    w = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
     return torch.einsum("bhgs,bshd->bhgd", w, vv.float())
+
+
+def _decode_attend_seq(cfg: ModelConfig, q, cache_k, cache_v, cache_index,
+                       *, offset: int, groups) -> torch.Tensor:
+    """``_decode_attend`` on a rank's block of rows of a sequence-sharded
+    cache (rows ``offset`` on), merged with the other blocks' over
+    ``groups`` (the mesh dims that split the rows) by log-sum-exp: each
+    block's max, sum of exponentials and weighted values in f32; one
+    all-reduce of the max, then one of the rescaled sums and values.  A
+    block with no visible row adds zeros."""
+    s, vv, valid = _decode_scores(cfg, q, cache_k, cache_v, cache_index,
+                                  offset)
+    m = torch.where(valid, s, NEG_INF).amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    acc = torch.einsum("bhgs,bshd->bhgd", p, vv.float())
+    top = m
+    for g in groups:
+        top = funcol.wait_tensor(funcol.all_reduce(top, "max", g))
+    scale = torch.exp(m - top)
+    both = torch.cat([acc * scale, p.sum(dim=-1, keepdim=True) * scale], -1)
+    for g in groups:
+        both = funcol.wait_tensor(funcol.all_reduce(both, "sum", g))
+    return both[..., :-1] / both[..., -1:]
 
 
 def _decode_local(cfg: ModelConfig, q, k, v, cache_k, cache_v, cache_index):
@@ -378,12 +386,20 @@ def _decode_sharded(cfg: ModelConfig, q: DTensor, k: DTensor, v: DTensor,
     and each rank writes its own rows into its block, in place.  When a
     block holds whole kv heads the attention runs on it, with q on the
     same heads; otherwise (a kv head split across ranks) it reads a copy
-    of the cache with those heads gathered.  Returns [B,Hkv,G,Dh] f32."""
+    of the cache with those heads gathered.  On a sequence-sharded cache
+    (``shard_seq``) a rank holds a block of rows: only the rank whose
+    block holds a slot's index writes it, and each attends over its rows
+    and merges with the others (``_decode_attend_seq``).  Returns
+    [B,Hkv,G,Dh] f32."""
     mesh = q.device_mesh
     cp = tuple(cache_k.placements)
-    if any(p.is_shard(1) for p in cp):
-        raise NotImplementedError("decode on a sequence-sharded cache "
-                                  "(shard_seq) is not ported")
+    seq = [i for i, p in enumerate(cp) if p.is_shard(1)]
+    # this rank's block of rows: its coordinates on the seq dims, major
+    # first, as DTensor splits a dim over several mesh dims
+    block = 0
+    for i in seq:
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+    offset = block * cache_k.to_local().shape[1]
 
     def moved(placements, dims):
         """``placements`` of the cache, on the dims ``dims`` maps to."""
@@ -394,14 +410,17 @@ def _decode_sharded(cfg: ModelConfig, q: DTensor, k: DTensor, v: DTensor,
     rows = moved(cp, {0: 0, 2: 1})
     _write_rows(k.redistribute(mesh, rows).to_local(),
                 v.redistribute(mesh, rows).to_local(), cache_k.to_local(),
-                cache_v.to_local(), index.to_local())
+                cache_v.to_local(), index.to_local(), offset)
     if cache_k.to_local().shape[-1] % cfg.head_dim:
         cp = tuple(Replicate() if p.is_shard(2) else p for p in cp)
         cache_k = cache_k.redistribute(mesh, cp)
         cache_v = cache_v.redistribute(mesh, cp)
     heads = moved(cp, {0: 0, 2: 2})
-    return local_map(functools.partial(_decode_attend, cfg),
-                     out_placements=list(moved(cp, {0: 0, 2: 1})),
+    fn = functools.partial(_decode_attend, cfg)
+    if seq:
+        fn = functools.partial(_decode_attend_seq, cfg, offset=offset,
+                               groups=[(mesh, i) for i in seq])
+    return local_map(fn, out_placements=list(moved(cp, {0: 0, 2: 1})),
                      in_placements=(heads, cp, cp, index.placements),
                      device_mesh=mesh)(q.redistribute(mesh, heads), cache_k,
                                        cache_v, index)

@@ -20,14 +20,14 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models.attention import (
-    _attend, _merge_heads, _project_q, _project_qkv, _split_heads,
+    _attend, _project_q, _project_qkv,
     attention_apply, attention_axes, attention_decode, attention_init,
     attention_prefill,
 )
 from repro_torch.models.blocks import _residual
 from repro_torch.models.layers import (
-    Axes, Params, matmul, mlp_apply, mlp_axes, mlp_init, rmsnorm,
-    rmsnorm_init, torch_dtype, use,
+    Axes, Params, matmul, merge_heads, mlp_apply, mlp_axes, mlp_init,
+    rmsnorm, rmsnorm_init, split_heads, torch_dtype, use,
 )
 
 
@@ -141,7 +141,8 @@ def dec_block_decode(cfg: ModelConfig, p: Params, h: torch.Tensor,
     h = h + _residual(a)
     xn = rmsnorm(h, p["ln_x"], cfg.rms_eps)
     q = _project_q(cfg, p["cross_attn"], xn, positions)
-    kk, vv = (_split_heads(cache[k], cfg.num_kv_heads, cfg.head_dim)
+    kk, vv = (split_heads(cache[k], cfg.num_kv_heads, cfg.head_dim,
+                          "batch", None)
               for k in ("xk", "xv"))
     o = _attend(cfg, q, kk, vv, causal=False)
     h = h + _residual(_cross_out(cfg, p, o))
@@ -152,4 +153,4 @@ def dec_block_decode(cfg: ModelConfig, p: Params, h: torch.Tensor,
 def _cross_out(cfg: ModelConfig, p: Params, o: torch.Tensor) -> torch.Tensor:
     """Cross-attention's output product: o [B,S,Hq,Dh] -> [B,S,d]."""
     wo = use(p["cross_attn"]["wo"], torch_dtype(cfg.dtype), "heads", None)
-    return matmul(_merge_heads(o), wo)
+    return matmul(merge_heads(o, "batch", None), wo)

@@ -15,6 +15,14 @@ dicts, and ``ln_mix``/``ln_ffn`` stay [period, d] tensors.  The decode
 cache keeps the reference's layout: ``k``/``v`` [nb, B, max_len, kv_dim],
 ``conv`` [nb, n_mamba, B, K-1, di] and ``ssm`` [nb, n_mamba, B, di, N]
 (f32), so batch is axis 2 of the Mamba entries.
+
+On a mesh (DTensors) every sublayer's output is laid out as the residual
+stream before it is added (``blocks._residual``); attention runs on each
+rank's heads (``attention._attend_sharded``; jamba is NoPE), the MoE
+FFNs on each rank's experts (``moe._experts``), the Mamba layers on each
+rank's ``inner`` channels; the ``ln_mix``/``ln_ffn`` rows are indexed
+where they lie; a superblock's Mamba states are stacked per rank
+(``layers.stack_layers``) and written back per rank in decode.
 """
 from __future__ import annotations
 
@@ -27,11 +35,14 @@ from repro_torch.models.attention import (
     attention_apply, attention_axes, attention_decode, attention_init,
     attention_prefill,
 )
+from repro_torch.models.blocks import _residual
 from repro_torch.models.layers import (
-    Axes, Params, mlp_apply, mlp_axes, mlp_init, rmsnorm, torch_dtype,
+    Axes, Params, assign_, mlp_apply, mlp_axes, mlp_init, rmsnorm,
+    stack_layers, torch_dtype,
 )
 from repro_torch.models.mamba import (
-    mamba_apply, mamba_axes, mamba_cache_init, mamba_decode, mamba_init,
+    mamba_apply, mamba_axes, mamba_cache_axes, mamba_cache_init,
+    mamba_decode, mamba_init,
 )
 from repro_torch.models.moe import moe_apply, moe_axes, moe_init
 
@@ -107,8 +118,8 @@ def _ffn(cfg: ModelConfig, p: Params, h: torch.Tensor, i: int,
     x = rmsnorm(h, p["ln_ffn"][i], cfg.rms_eps)
     if ffn == "moe":
         y, aux = moe_apply(cfg, fp, x)
-        return h + y, aux
-    return h + mlp_apply(cfg, fp, x), None
+        return h + _residual(y), aux
+    return h + _residual(mlp_apply(cfg, fp, x)), None
 
 
 def superblock_apply(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -120,10 +131,11 @@ def superblock_apply(cfg: ModelConfig, p: Params, h: torch.Tensor,
     for i, mixer, ffn, fp in _layers(cfg, p):
         x = rmsnorm(h, p["ln_mix"][i], cfg.rms_eps)
         if mixer == "attn":
-            h = h + attention_apply(cfg, p["attn"], x, positions, causal=True)
+            y = attention_apply(cfg, p["attn"], x, positions, causal=True)
         else:
-            h = h + mamba_apply(cfg, p["mamba"][im], x)
+            y = mamba_apply(cfg, p["mamba"][im], x)
             im += 1
+        h = h + _residual(y)
         h, a = _ffn(cfg, p, h, i, ffn, fp)
         if a is not None:
             aux = aux + a
@@ -145,19 +157,18 @@ def superblock_prefill(cfg: ModelConfig, p: Params, h: torch.Tensor,
     for i, mixer, ffn, fp in _layers(cfg, p):
         x = rmsnorm(h, p["ln_mix"][i], cfg.rms_eps)
         if mixer == "attn":
-            a, kv = attention_prefill(cfg, p["attn"], x, positions)
-            h = h + a
+            y, kv = attention_prefill(cfg, p["attn"], x, positions)
             cache.update(kv)
         else:
             y, st = mamba_apply(cfg, p["mamba"][im], x, return_state=True)
-            h = h + y
             states.append(st)
             im += 1
+        h = h + _residual(y)
         h, a = _ffn(cfg, p, h, i, ffn, fp)
         if a is not None:
             aux = aux + a
-    for name in ("conv", "ssm"):
-        cache[name] = torch.stack([st[name] for st in states])
+    for name, axes in mamba_cache_axes().items():
+        cache[name] = stack_layers([st[name] for st in states], axes)
     return h, cache, aux
 
 
@@ -171,16 +182,15 @@ def superblock_decode(cfg: ModelConfig, p: Params, h: torch.Tensor,
     for i, mixer, ffn, fp in _layers(cfg, p):
         x = rmsnorm(h, p["ln_mix"][i], cfg.rms_eps)
         if mixer == "attn":
-            a, _, _ = attention_decode(cfg, p["attn"], x, positions,
+            y, _, _ = attention_decode(cfg, p["attn"], x, positions,
                                        cache["k"], cache["v"], index)
-            h = h + a
         else:
             st = {"conv": cache["conv"][im], "ssm": cache["ssm"][im]}
             y, new = mamba_decode(cfg, p["mamba"][im], x, st)
-            h = h + y
             for name, t in new.items():
-                st[name].copy_(t)
+                assign_(st[name], t)
             im += 1
+        h = h + _residual(y)
         h, _ = _ffn(cfg, p, h, i, ffn, fp)
     return h
 

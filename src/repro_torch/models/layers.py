@@ -17,9 +17,10 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
+from torch.distributed.tensor.placement_types import Placement
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.parallel.context import current_ctx, layout
+from repro_torch.parallel.context import current_ctx, layout, shard
 
 Params = Dict[str, Any]
 # logical axis names of each parameter dim (``parallel/sharding.py``)
@@ -96,6 +97,100 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.redistribute(x.device_mesh, whole).to(x.dtype)
 
 
+def per_rank(fn, args: Sequence[torch.Tensor], out_placements, ref: int = 0):
+    """``fn(*args)`` on each rank's blocks of the DTensors ``args`` (plain
+    tensors: ``fn(*args)``), its outputs laid out by
+    ``out_placements(args[ref].placements)`` (one placements tuple an
+    output).  The grad of an input that is whole
+    on a mesh dim where ``args[ref]`` (the activation the work is split
+    by) is split is a partial sum over that dim: a weight used by every
+    batch block, b and c of the scan used by every channel block."""
+    lead = args[ref]
+    if not isinstance(lead, DTensor):
+        return fn(*args)
+    ins = tuple(tuple(a.placements) for a in args)
+    out = out_placements(tuple(lead.placements))
+    # local_map reads a list as one output's placements, a tuple as one
+    # entry an output
+    out = list(out) if isinstance(out[0], Placement) else \
+        tuple(list(o) for o in out)
+    grads = tuple(tuple(Partial() if isinstance(p, Replicate) and r.is_shard()
+                        else p for p, r in zip(pl, lead.placements))
+                  for pl in ins)
+    return local_map(fn, out_placements=out, in_placements=ins,
+                     in_grad_placements=grads,
+                     device_mesh=lead.device_mesh)(*args)
+
+
+def assign_(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; on a mesh each rank writes its own block of
+    ``src``, laid out as ``dst`` is, into ``dst``'s block (a view of a
+    cache entry's block, which the write reaches)."""
+    if not isinstance(dst, DTensor):
+        dst.copy_(src)
+        return
+    if src.placements != dst.placements:
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.to_local().copy_(src.to_local())
+
+
+def stack_layers(parts, axes: Sequence[Optional[str]], stack=None
+                 ) -> torch.Tensor:
+    """``stack(*parts)`` (default ``torch.stack``): per-layer cache entries
+    into one with a leading layer axis.  On a mesh each part is laid out
+    by ``axes`` (its logical axes) and each rank stacks its own blocks, so
+    the entry comes out laid out by ``(None,) + axes``."""
+    stack = stack or (lambda *t: torch.stack(t))
+    if not isinstance(parts[0], DTensor):
+        return stack(*parts)
+    parts = [shard(t, *axes) for t in parts]
+    pl = parts[0].placements
+    stacked = tuple(type(p)(p.dim + 1) if p.is_shard() else p for p in pl)
+    return local_map(stack, out_placements=list(stacked),
+                     in_placements=(pl,) * len(parts),
+                     device_mesh=parts[0].device_mesh)(*parts)
+
+
+def split_heads(t: torch.Tensor, H: int, D: int, *lead) -> torch.Tensor:
+    """[..., H*D] -> [..., H, D], on a mesh laid out by ``lead`` (the
+    logical axes of the leading dims) and the heads (``"heads_dim"``).  A
+    last dim whose shards would cut a head (kv_dim 1024 on a 16-way axis:
+    half a head a rank; rwkv6-3b's 2560 channels: 2.5) is gathered first,
+    as DTensor cannot split such a shard.  The grad is pinned to the
+    heads' layout too, so that it never reaches the view's backward with
+    a head cut across ranks."""
+    if isinstance(t, DTensor):
+        last, n = t.ndim - 1, 1
+        for i, p in enumerate(t.placements):
+            if p.is_shard(last):
+                n *= t.device_mesh.size(i)
+        if H % n:
+            t = shard(t, *lead, None)
+    return shard(t.reshape(*t.shape[:-1], H, D), *lead, "heads_dim", None)
+
+
+def merge_heads(o: torch.Tensor, *lead) -> torch.Tensor:
+    """[..., H, D] -> [..., H*D], laid out by ``lead`` and ``"heads_act"``
+    (columns on ``model``) for a row-parallel product.  Heads held whole
+    by every rank (the axis does not divide them) are merged replicated
+    first, and their grad gathered back there, for the view's
+    backward."""
+    out = o.reshape(*o.shape[:-2], o.shape[-2] * o.shape[-1])
+    if not isinstance(o, DTensor):
+        return out
+    if not any(p.is_shard(o.ndim - 2) for p in o.placements):
+        out = shard(out, *lead, None)
+    return shard(out, *lead, "heads_act")
+
+
+def state_placements(pl) -> Tuple:
+    """The placements of a per-sequence state [B, ...] computed from an
+    activation [B, S, ...] laid out by ``pl``: the sequence dim (never
+    split) dropped, the dims after it one lower."""
+    return tuple(Shard(p.dim - 1 if p.dim > 1 else p.dim) if p.is_shard()
+                 else p for p in pl)
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """``"bfloat16"`` -> ``torch.bfloat16`` (config dtypes are strings)."""
     dt = getattr(torch, name, None)
@@ -138,6 +233,41 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * use(scale, torch.float32, None)).to(dt)
+
+
+def rmsnorm_sharded(x: torch.Tensor, scale: torch.Tensor,
+                    eps: float) -> torch.Tensor:
+    """``rmsnorm`` over the whole last dim of ``x``, which on a mesh may
+    be split (RWKV6's ``ln_x`` after WKV on each rank's heads): each rank
+    sums the squares of its block, the [..., 1] sums are all-reduced over
+    the ranks of the split, and each rank scales its block by its slice
+    of ``scale``; x itself is never gathered."""
+    last = x.ndim - 1
+    if not isinstance(x, DTensor) or not any(p.is_shard(last)
+                                             for p in x.placements):
+        return rmsnorm(x, scale, eps)
+    mesh, pl, d = x.device_mesh, tuple(x.placements), x.shape[-1]
+    split = [p.is_shard(last) for p in pl]
+    whole = tuple(Replicate() if s else p for s, p in zip(split, pl))
+    sq = local_map(lambda t: t.float().square().sum(-1, keepdim=True),
+                   out_placements=[Partial() if s else p
+                                   for s, p in zip(split, pl)],
+                   in_placements=(pl,), device_mesh=mesh)(x)
+    sq = sq.redistribute(mesh, whole)
+    w_pl = tuple(Shard(0) if s else Replicate() for s in split)
+    w = scale.to(torch.float32).redistribute(mesh, w_pl)
+
+    def norm(t, s, g):
+        return (t.float() * torch.rsqrt(s / d + eps) * g).to(t.dtype)
+
+    # the sums' grad is partial over the split (each rank's block's
+    # share); the scale's over the mesh dims that split x's rows
+    grads = (pl, tuple(Partial() if s else p for s, p in zip(split, whole)),
+             tuple(Partial() if p.is_shard() and not s else q
+                   for s, p, q in zip(split, pl, w_pl)))
+    return local_map(norm, out_placements=list(pl),
+                     in_placements=(pl, whole, w_pl), in_grad_placements=grads,
+                     device_mesh=mesh)(x, sq, w)
 
 
 # ---------------------------------------------------------------------------

@@ -18,20 +18,37 @@ and its final state, not every token's [B, di, N] terms, as the
 reference's ``jax.checkpoint``-ed chunks do (the reference also asserts
 that its chunk count divides S).  Without grad one scan runs over the
 whole sequence; the sums are the same either way.
+
+On a mesh (DTensors under ``parallel/context.py``) each rank holds its
+own ``inner`` channels: ``in_proj`` is column-parallel, and its output's
+contiguous column blocks are traded by one all-to-all so that each rank
+gets its di/n channels of both ``xi`` and ``z`` (``_halves``, the
+reshard GSPMD makes for the reference); the conv, ``dt_bias``,
+``A_log``, ``D`` and the gate are per channel; ``x_proj`` is
+row-parallel (its [.., R+2N] output reduced), ``dt_proj`` column- and
+``out_proj`` row-parallel; the scan, kernel or token loop, runs on each
+rank's channels with b and c whole (``layers.per_rank``), and the decode
+state keeps ``conv``/``ssm`` on ``inner_act``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (
-    Axes, Params, dense_init, rmsnorm, rmsnorm_init, torch_dtype,
+    Axes, Params, dense_init, matmul, per_rank, rmsnorm, rmsnorm_init,
+    state_placements, torch_dtype, use,
 )
+from repro_torch.parallel.collectives import all_to_all_rows
+from repro_torch.parallel.context import shard
 
 CHUNK = 256
 
@@ -88,28 +105,102 @@ def mamba_axes(cfg: ModelConfig) -> Axes:
     }
 
 
+def mamba_cache_axes() -> Axes:
+    """Logical axes of one layer's decode state (``mamba_cache_init``)."""
+    return {"conv": ("batch", None, "inner_act"),
+            "ssm": ("batch", "inner_act", None)}
+
+
+def _halves(xz: torch.Tensor):
+    """in_proj's output xz [B,S,2di] -> (xi, z), each [B,S,di].
+
+    On a mesh whose ``model`` axis (n ranks, n even) splits xz's columns,
+    rank j holds the contiguous columns [2j·e, (2j+2)·e), e = di/n: of xi
+    for j < n/2, of z past it (n = 2: all of xi on rank 0, all of z on
+    rank 1).  Each rank sends its two e-column blocks to the ranks that
+    own them (block b: xi's block b on rank b for b < n, z's block b - n
+    on rank b - n past it) and receives its own blocks of xi and z, in
+    one all-to-all: 2·e columns of its rows a rank, a self-send among
+    them.  Slicing the weight at di instead would make DTensor gather the
+    whole [d, 2di] weight.  Any other layout gathers xz's columns."""
+    if not isinstance(xz, DTensor):
+        return xz.chunk(2, dim=-1)
+    last, mesh = xz.ndim - 1, xz.device_mesh
+    split = [i for i, p in enumerate(xz.placements) if p.is_shard(last)]
+    if not split:
+        return xz.chunk(2, dim=-1)
+    dim = split[0]
+    n = mesh.size(dim)
+    lead = ("batch",) + (None,) * (xz.ndim - 2)
+    if len(split) > 1 or n % 2 or (xz.shape[-1] // 2) % n:
+        xi, z = shard(xz, *lead, None).chunk(2, dim=-1)
+        return shard(xi, *lead, "inner_act"), shard(z, *lead, "inner_act")
+    pl = tuple(xz.placements)
+    fn = functools.partial(_trade_halves, mesh=mesh, dim=dim)
+    return local_map(fn, out_placements=(pl, pl), in_placements=(pl,),
+                     device_mesh=mesh)(xz)
+
+
+def _trade_halves(t: torch.Tensor, *, mesh, dim: int):
+    """``_halves``' all-to-all on one rank's block t [..., 2e] of xz."""
+    n, j = mesh.size(dim), mesh.get_local_rank(dim)
+    coord = list(mesh.get_coordinate())
+
+    def rank_of(c: int) -> int:
+        coord[dim] = c
+        return int(mesh.mesh[tuple(coord)])
+
+    e = t.shape[-1] // 2
+    rows = t.numel() // t.shape[-1]
+    dest = [rank_of(2 * j % n), rank_of((2 * j + 1) % n)]
+    src = [rank_of(j // 2), rank_of(n // 2 + j // 2)]     # xi's, z's
+    chan = t.reshape(rows, 2 * e).t()                     # [2e, rows]
+    send_order = sorted(range(2), key=dest.__getitem__)
+    send = torch.cat([chan[i * e:(i + 1) * e] for i in send_order])
+    got = all_to_all_rows(send, [(r, e) for r in sorted(dest)],
+                          [(r, e) for r in sorted(src)])
+    recv_order = sorted(range(2), key=src.__getitem__)
+    xi, z = (got[recv_order.index(i) * e:(recv_order.index(i) + 1) * e]
+             .t().reshape(*t.shape[:-1], e) for i in range(2))
+    return xi, z
+
+
 def _ssm_inputs(cfg: ModelConfig, p: Params, xc: torch.Tensor):
-    """Post-conv activations -> (dt [.,di], B [.,N], C [.,N]) float32."""
+    """Post-conv activations -> (dt [.,di], B [.,N], C [.,N]) float32; on
+    a mesh dt on each rank's channels, b and c whole (``x_proj``'s
+    partial sums reduced)."""
     di, N, K, R = _dims(cfg)
-    dbc = xc @ p["x_proj"].to(xc.dtype)
+    dbc = matmul(xc, use(p["x_proj"], xc.dtype, "inner", None))
+    dbc = shard(dbc, "batch", None, None)
     dt_r, b, c = torch.split(dbc, [R, N, N], dim=-1)
     dt_r = rmsnorm(dt_r, p["dt_norm"], cfg.rms_eps)
     b = rmsnorm(b, p["b_norm"], cfg.rms_eps).float()
     c = rmsnorm(c, p["c_norm"], cfg.rms_eps).float()
-    dt = dt_r @ p["dt_proj"].to(dt_r.dtype)
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    dt = matmul(dt_r, use(p["dt_proj"], dt_r.dtype, None, "inner"))
+    dt = F.softplus(dt.float() + use(p["dt_bias"], torch.float32, "inner"))
     return dt, b, c
 
 
-def _conv(p: Params, window: torch.Tensor, S: int,
-          dtype: torch.dtype) -> torch.Tensor:
-    """Causal depthwise conv + SiLU over ``window`` [B, S+K-1, di] (K-1
-    tokens of left context), summed left to right in ``dtype`` as the
-    reference does."""
-    K = p["conv_w"].shape[0]
-    xc = sum(window[:, i:i + S, :] * p["conv_w"][i].to(dtype)
-             for i in range(K))
-    return F.silu(xc + p["conv_b"].to(dtype))
+def _conv_local(xi: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                left=None):
+    """Causal depthwise conv + SiLU over xi [B,S,di] with ``left`` [B,K-1,
+    di] of left context (zeros if None), summed left to right in xi's
+    dtype as the reference does -> (xc, the window's last K-1 rows: the
+    next step's context)."""
+    K, S = w.shape[0], xi.shape[1]
+    window = F.pad(xi, (0, 0, K - 1, 0)) if left is None else \
+        torch.cat([left, xi], dim=1)
+    xc = sum(window[:, i:i + S, :] * w[i] for i in range(K))
+    return F.silu(xc + bias), window[:, S:, :]
+
+
+def _conv(p: Params, xi: torch.Tensor, dtype: torch.dtype, left=None):
+    """``_conv_local`` on each rank's channels."""
+    args = (xi, use(p["conv_w"], dtype, None, "inner"),
+            use(p["conv_b"], dtype, "inner"))
+    if left is not None:
+        args += (left,)
+    return per_rank(_conv_local, args, lambda pl: (pl, pl))
 
 
 def _scan_chunk(A, dt, b, c, xs, h0):
@@ -126,45 +217,49 @@ def _scan_chunk(A, dt, b, c, xs, h0):
     return torch.stack(ys, dim=1), h
 
 
+def _scan(impl: str, return_state: bool, dt, A, b, c, xf):
+    """The full-sequence scan on the channels these tensors hold -> y, or
+    (y, hT) with ``return_state``."""
+    if impl == "pallas":
+        return kops.mamba_scan(A, dt, b, c, xf, return_state=return_state)
+    B, S, di = xf.shape
+    h = torch.zeros(B, di, A.shape[1], dtype=torch.float32, device=xf.device)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (A, dt, b, c, xf)):
+        ys = []
+        for s in range(0, S, CHUNK):
+            cut = slice(s, s + CHUNK)
+            y_c, h = checkpoint(_scan_chunk, A, dt[:, cut], b[:, cut],
+                                c[:, cut], xf[:, cut], h,
+                                use_reentrant=False)
+            ys.append(y_c)
+        y = torch.cat(ys, dim=1)
+    else:
+        y, h = _scan_chunk(A, dt, b, c, xf, h)
+    return (y, h) if return_state else y
+
+
 def mamba_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 return_state: bool = False):
     """Full-sequence forward.  x: [B,S,d] -> [B,S,d], or with
     ``return_state`` (out, {"conv": [B,K-1,di], "ssm": [B,di,N] f32})."""
     dt_ = torch_dtype(cfg.dtype)
-    di, N, K, R = _dims(cfg)
-    B, S, _ = x.shape
-    xz = x @ p["in_proj"].to(dt_)
-    xi, z = xz.chunk(2, dim=-1)
-    xc = _conv(p, F.pad(xi, (0, 0, K - 1, 0)), S, dt_)
+    xz = matmul(x, use(p["in_proj"], dt_, None, "inner"))
+    xi, z = _halves(xz)
+    xc, conv_tail = _conv(p, xi, dt_)
     dt, b, c = _ssm_inputs(cfg, p, xc)
-    A = -torch.exp(p["A_log"])                         # [di, N]
+    A = -torch.exp(use(p["A_log"], torch.float32, "inner", None))   # [di, N]
     xf = xc.float()
-
-    if cfg.scan_impl == "pallas":
-        out = kops.mamba_scan(A, dt, b, c, xf, return_state=return_state)
-        y, h = out if return_state else (out, None)
-    else:
-        h = torch.zeros(B, di, N, dtype=torch.float32, device=x.device)
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (A, dt, b, c, xf)):
-            ys = []
-            for s in range(0, S, CHUNK):
-                cut = slice(s, s + CHUNK)
-                y_c, h = checkpoint(_scan_chunk, A, dt[:, cut], b[:, cut],
-                                    c[:, cut], xf[:, cut], h,
-                                    use_reentrant=False)
-                ys.append(y_c)
-            y = torch.cat(ys, dim=1)
-        else:
-            y, h = _scan_chunk(A, dt, b, c, xf, h)
-
-    y = y + xf * p["D"]
+    scan = functools.partial(_scan, cfg.scan_impl, return_state)
+    out = per_rank(scan, (dt, A, b, c, xf),
+                   lambda pl: (pl, state_placements(pl)) if return_state
+                   else pl)
+    y, h = out if return_state else (out, None)
+    y = y + xf * use(p["D"], torch.float32, "inner")
     out = y.to(dt_) * F.silu(z)
-    out = out @ p["out_proj"].to(dt_)
+    out = matmul(out, use(p["out_proj"], dt_, "inner", None))
     if not return_state:
         return out
-    conv_tail = (xi[:, S - (K - 1):, :] if S >= K - 1
-                 else F.pad(xi, (0, 0, K - 1 - S, 0)))
     return out, {"conv": conv_tail, "ssm": h}
 
 
@@ -188,18 +283,16 @@ def mamba_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [B,1,d] -> ([B,1,d], new cache).  ``cache`` is only read."""
     dt_ = torch_dtype(cfg.dtype)
-    xz = x @ p["in_proj"].to(dt_)
-    xi, z = xz.chunk(2, dim=-1)                        # [B,1,di]
-    window = torch.cat([cache["conv"], xi], dim=1)     # [B,K,di]
-    xc = _conv(p, window, 1, dt_)                      # [B,1,di]
+    xz = matmul(x, use(p["in_proj"], dt_, None, "inner"))
+    xi, z = _halves(xz)                                # [B,1,di]
+    xc, conv = _conv(p, xi, dt_, cache["conv"])        # [B,1,di]
     dt, b, c = _ssm_inputs(cfg, p, xc)                 # [B,1,*]
-    A = -torch.exp(p["A_log"])
-    xf = xc[:, 0].float()
-    dA = torch.exp(dt[:, 0, :, None] * A)              # [B,di,N]
-    dBx = (dt[:, 0] * xf)[..., None] * b[:, 0, None, :]
-    h = dA * cache["ssm"] + dBx
-    y = torch.einsum("bdn,bn->bd", h, c[:, 0])
-    y = y + xf * p["D"]
-    out = y[:, None, :].to(dt_) * F.silu(z)
-    out = out @ p["out_proj"].to(dt_)
-    return out, {"conv": window[:, 1:, :], "ssm": h}
+    A = -torch.exp(use(p["A_log"], torch.float32, "inner", None))
+    xf = xc.float()
+    y, h = per_rank(lambda dt, A, b, c, x, h0: _scan_chunk(A, dt, b, c, x, h0),
+                    (dt, A, b, c, xf, cache["ssm"]),
+                    lambda pl: (pl, state_placements(pl)))
+    y = y + xf * use(p["D"], torch.float32, "inner")
+    out = y.to(dt_) * F.silu(z)
+    out = matmul(out, use(p["out_proj"], dt_, "inner", None))
+    return out, {"conv": conv, "ssm": h}

@@ -46,6 +46,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
 from repro_torch.models import rwkv6 as RW
 from repro_torch.parallel.context import (
     current_ctx, distribute, shard, sharding_ctx,
@@ -131,23 +132,10 @@ def _prepends_frontend(cfg: ModelConfig, batch: Batch) -> bool:
         and cfg.family != ENCDEC
 
 
-def _check_mesh(cfg: ModelConfig, tokens: torch.Tensor) -> None:
-    """On a mesh (DTensor inputs) the dense, MoE, enc-dec and VLM families
-    run; RWKV6's and the hybrid's layers have no layout pinned yet, and
-    DTensor's own choices would gather whole tensors, so they are
-    refused."""
-    if isinstance(tokens, DTensor) and cfg.family in (SSM, HYBRID):
-        todo = "(g3b)" if cfg.family == SSM else "(g3c)"
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family on a DeviceMesh is not "
-            f"ported (ROADMAP slice {todo})")
-
-
 def _embed_inputs(cfg: ModelConfig, p: Params, batch: Batch) -> torch.Tensor:
     """Token embeddings, with modality-frontend embeddings prepended.  On
     a mesh both parts are laid out as ``h`` is and each rank joins its own
     rows (DTensor's ``cat`` may gather a sharded operand)."""
-    _check_mesh(cfg, batch["tokens"])
     h = L.embed_tokens(cfg, p["embed"], batch["tokens"])
     if _prepends_frontend(cfg, batch):
         parts = [shard(t, "batch", None, "embed_act")
@@ -176,21 +164,28 @@ def _logits(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _shift(x: torch.Tensor) -> torch.Tensor:
-    """x [B,S,d] shifted right by one token (zeros first)."""
+    """x [B,S,d] shifted right by one token (zeros first); on a mesh each
+    rank shifts its own rows (the sequence dim is never split)."""
+    return L.per_rank(_shift_local, (x,), lambda pl: pl)
+
+
+def _shift_local(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
 def _rwkv_block(cfg: ModelConfig, lp: Params, h: torch.Tensor,
                 return_state: bool = False):
     """One RWKV6 layer over the full sequence; with ``return_state`` also
-    the layer's decode cache entry (tshift, cshift, wkv)."""
+    the layer's decode cache entry (tshift, cshift, wkv).  On a mesh each
+    sublayer's output is laid out as the residual stream before it is
+    added (``blocks._residual``)."""
     xn = L.rmsnorm(h, lp["ln1"], cfg.rms_eps)
     tm = RW.rwkv_time_mix(cfg, lp, xn, _shift(xn), return_state=return_state)
     if return_state:
         tm, st = tm
-    h = h + tm
+    h = h + B._residual(tm)
     xn2 = L.rmsnorm(h, lp["ln2"], cfg.rms_eps)
-    h = h + RW.rwkv_channel_mix(cfg, lp, xn2, _shift(xn2))
+    h = h + B._residual(RW.rwkv_channel_mix(cfg, lp, xn2, _shift(xn2)))
     if not return_state:
         return h
     return h, {"tshift": xn[:, -1, :], "cshift": xn2[:, -1, :], "wkv": st}
@@ -387,13 +382,10 @@ def cache_logical_axes(cfg: ModelConfig, *, shard_seq: bool = False) -> Any:
     seq = "kv_seq" if shard_seq else None
     kv = (None, "batch", seq, "kv_act")
     if cfg.family == HYBRID:
-        a = {"k": kv, "v": kv,
-             "conv": (None, None, "batch", None, "inner_act"),
-             "ssm": (None, None, "batch", "inner_act", None)}
+        a = {"k": kv, "v": kv, **{k: (None, None) + ax for k, ax in
+                                  MB.mamba_cache_axes().items()}}
     elif cfg.family == SSM:
-        a = {"tshift": (None, "batch", "embed_act"),
-             "cshift": (None, "batch", "embed_act"),
-             "wkv": (None, "batch", "heads_act", None, None)}
+        a = {k: (None,) + ax for k, ax in RW.rwkv_cache_axes().items()}
     elif cfg.family == ENCDEC:
         a = {"k": kv, "v": kv, "xk": kv, "xv": kv}
     else:
@@ -443,7 +435,10 @@ def prefill(cfg: ModelConfig, p: Params, batch: Batch, max_len: int,
     state too), where the reference takes its token loop.  Those states
     have no sequence axis, so ``max_len`` bounds only the attention K/V.
     The enc-dec cache holds the encoder-side ``xk``/``xv`` at the
-    encoder's length; a VLM's index counts its frontend positions.
+    encoder's length; a VLM's index counts its frontend positions.  On a
+    mesh every entry comes out laid out by ``cache_logical_axes`` under
+    the active rules: under the ``shard_seq`` decode rules the K/V rows
+    are split too, each rank keeping its block of its padded K/V.
     """
     positions = batch["positions"]
     h = _embed_inputs(cfg, p, batch)
@@ -456,23 +451,24 @@ def prefill(cfg: ModelConfig, p: Params, batch: Batch, max_len: int,
             ents.append(ent)
         cache = _embed_cache(cfg, ents, h.shape[0], max_len)
         for name in ("xk", "xv"):
-            cache[name] = _stack_layers([e[name] for e in ents],
-                                        lambda *t: torch.stack(t))
+            cache[name] = L.stack_layers([e[name] for e in ents],
+                                         _KV_PART)
     elif cfg.family == SSM:
         ents = []
         for lp in p["blocks"]:
             h, ent = _rwkv_block(cfg, lp, h, return_state=True)
             ents.append(ent)
-        cache = {k: torch.stack([e[k] for e in ents]) for k in ents[0]}
+        cache = {k: L.stack_layers([e[k] for e in ents], axes)
+                 for k, axes in RW.rwkv_cache_axes().items()}
     elif cfg.family == HYBRID:
         ents = []
         for lp in p["blocks"]:
             h, ent, _ = HY.superblock_prefill(cfg, lp, h, positions)
             ents.append(ent)
         cache = _embed_cache(cfg, ents, h.shape[0], max_len)
-        cache["conv"] = torch.stack([e["conv"] for e in ents]).to(
-            L.torch_dtype(cfg.dtype))
-        cache["ssm"] = torch.stack([e["ssm"] for e in ents])
+        for k, axes in MB.mamba_cache_axes().items():
+            cache[k] = L.stack_layers([e[k] for e in ents], (None,) + axes)
+        cache["conv"] = cache["conv"].to(L.torch_dtype(cfg.dtype))
     else:
         kvs = []
         for lp in p["blocks"]:
@@ -488,33 +484,24 @@ def prefill(cfg: ModelConfig, p: Params, batch: Batch, max_len: int,
     return _logits(cfg, p, h[:, -1:, :]), cache
 
 
+# a layer's prefill K/V [B,S,kv_dim]
+_KV_PART = ("batch", None, "kv_act")
+
+
 def _embed_cache(cfg: ModelConfig, kvs: List[Dict[str, torch.Tensor]],
                  batch: int, max_len: int) -> Params:
     """Pad per-layer prefill K/V [B,S,kv] into a [L,B,max_len,kv] cache;
-    on a mesh each rank pads its own block (``_stack_layers``)."""
+    on a mesh each rank pads its own block (``layers.stack_layers``), and
+    under the ``shard_seq`` decode rules keeps its block of the rows."""
     S = kvs[0]["k"].shape[1]
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len={max_len}")
     pad = functools.partial(_pad_stack, max_len=max_len,
                             dtype=L.torch_dtype(cfg.dtype))
-    return {name: _stack_layers([kv[name] for kv in kvs], pad)
+    axes = cache_logical_axes(cfg, shard_seq=True)
+    return {name: shard(L.stack_layers([kv[name] for kv in kvs], _KV_PART,
+                                       pad), *axes[name])
             for name in ("k", "v")}
-
-
-def _stack_layers(parts: List[torch.Tensor], stack: Callable
-                  ) -> torch.Tensor:
-    """``stack(*parts)``: per-layer cache entries [B,S,kv] into one
-    [L,B,.,kv] entry.  On a mesh each part is laid out ("batch", None,
-    "kv_act") and each rank stacks its own blocks, so the entry comes out
-    laid out by ``cache_logical_axes``."""
-    if not isinstance(parts[0], DTensor):
-        return stack(*parts)
-    parts = [shard(t, "batch", None, "kv_act") for t in parts]
-    pl = parts[0].placements
-    stacked = tuple(type(p)(p.dim + 1) if p.is_shard() else p for p in pl)
-    return local_map(stack, out_placements=list(stacked),
-                     in_placements=(pl,) * len(parts),
-                     device_mesh=parts[0].device_mesh)(*parts)
 
 
 def _pad_stack(*parts: torch.Tensor, max_len: int,
@@ -537,7 +524,6 @@ def decode_step(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
     new tensor, one higher for every slot, active or not, as in the
     reference.
     """
-    _check_mesh(cfg, tokens)
     index = cache["index"]
     h = shard(L.embed_tokens(cfg, p["embed"], tokens), "batch", None,
               "embed_act")
@@ -563,12 +549,12 @@ def decode_step(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
         ce = {k: cache[k][i] for k in ("tshift", "cshift", "wkv")}
         xn = L.rmsnorm(h, lp["ln1"], cfg.rms_eps)
         tm, st = RW.rwkv_decode_time(cfg, lp, xn, ce)
-        h = h + tm
+        h = h + B._residual(tm)
         xn2 = L.rmsnorm(h, lp["ln2"], cfg.rms_eps)
         cm, st["cshift"] = RW.rwkv_decode_channel(cfg, lp, xn2, ce["cshift"])
-        h = h + cm
+        h = h + B._residual(cm)
         for k, v in st.items():
-            ce[k].copy_(v)
+            L.assign_(ce[k], v)
     new_cache = dict(cache)
     new_cache["index"] = index + 1
     return _logits(cfg, p, h), new_cache

@@ -14,9 +14,21 @@ Counterpart of ``repro/models/rwkv6.py``.  Recurrence per head
                   state is asked for, as in the reference.
 The chunk loop cuts 64-token chunks and a shorter last one, so any S
 works (the reference asserts that its chunk count divides S).
+
+On a mesh (DTensors under ``parallel/context.py``) the reference has no
+``shard()`` site here: GSPMD propagates the layout from ``rwkv_axes``.
+The port fixes it: ``wr``/``wk``/``wv``/``wg``, ``decay_w2`` and
+``cw_k``/``cw_r`` are column-parallel products (``layers.matmul``),
+``wo`` and ``cw_v`` row-parallel; WKV runs on each rank's whole heads
+(``layers.split_heads``: a head cut across ranks, as rwkv6-3b's 40 on a
+16-way axis, is gathered first), the kernel or the chunk loop through
+``layers.per_rank``, with ``u`` and ``decay_base`` sliced to those heads;
+``ln_x`` normalises over all of d with one all-reduce of the sums of
+squares (``layers.rmsnorm_sharded``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -25,8 +37,10 @@ import torch.nn.functional as F
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (
-    Axes, Params, dense_init, rmsnorm, rmsnorm_init, torch_dtype,
+    Axes, Params, dense_init, matmul, merge_heads, per_rank, rmsnorm_init,
+    rmsnorm_sharded, split_heads, state_placements, torch_dtype, use,
 )
+from repro_torch.parallel.context import shard
 
 CHUNK = 64
 _MIX_COMPONENTS = 5  # w, k, v, r, g
@@ -104,23 +118,31 @@ def rwkv_axes(cfg: ModelConfig) -> Axes:
 
 def _ddlerp(cfg: ModelConfig, p: Params, x: torch.Tensor,
             x_prev: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Data-dependent token-shift lerp -> (mw, mk, mv, mr, mg)."""
+    """Data-dependent token-shift lerp -> (mw, mk, mv, mr, mg); on a mesh
+    on each rank's rows, with the (small) mixing weights whole."""
     dt = x.dtype
+    ws = (use(p["mu_base"], dt, None), use(p["mix_w1"], dt, None, None),
+          use(p["mix_w2"], dt, None, None, None), use(p["mu"], dt, None, None))
+    return per_rank(functools.partial(_ddlerp_local, cfg.rwkv.mix_lora),
+                    (x, x_prev) + ws, lambda pl: (pl,) * _MIX_COMPONENTS)
+
+
+def _ddlerp_local(mix_lora: int, x, x_prev, mu_base, mix_w1, mix_w2, mu):
     sx = x_prev - x
-    base = x + sx * p["mu_base"].to(dt)
-    lo = torch.tanh(base @ p["mix_w1"].to(dt))
-    lo = lo.reshape(*lo.shape[:-1], _MIX_COMPONENTS, cfg.rwkv.mix_lora)
-    off = torch.einsum("...cr,crd->...cd", lo, p["mix_w2"].to(dt))
-    mus = p["mu"].to(dt) + off                         # [..., 5, d]
-    mixed = x[..., None, :] + sx[..., None, :] * mus
+    lo = torch.tanh((x + sx * mu_base) @ mix_w1)
+    lo = lo.reshape(*lo.shape[:-1], _MIX_COMPONENTS, mix_lora)
+    off = torch.einsum("...cr,crd->...cd", lo, mix_w2)
+    mixed = x[..., None, :] + sx[..., None, :] * (mu + off)   # [..., 5, d]
     return tuple(mixed[..., i, :] for i in range(_MIX_COMPONENTS))
 
 
 def _decay(p: Params, mw: torch.Tensor) -> torch.Tensor:
-    """Per-channel decay w_t in (0,1): exp(-exp(base + lora(mw))), f32."""
-    lo = torch.tanh(mw @ p["decay_w1"].to(mw.dtype))
-    dd = lo @ p["decay_w2"].to(mw.dtype)
-    return torch.exp(-torch.exp(p["decay_base"] + dd.float()))
+    """Per-channel decay w_t in (0,1): exp(-exp(base + lora(mw))), f32;
+    on a mesh the channels of each rank's heads."""
+    lo = torch.tanh(matmul(mw, use(p["decay_w1"], mw.dtype, None, None)))
+    dd = matmul(lo, use(p["decay_w2"], mw.dtype, None, "heads"))
+    return torch.exp(-torch.exp(use(p["decay_base"], torch.float32, "heads")
+                                + dd.float()))
 
 
 def _wkv_chunk(r, k, v, w, u, S0):
@@ -168,6 +190,48 @@ def _wkv_chunk_parallel(r, k, v, w, u, S0):
     return y, ST
 
 
+def _wkv_kernel(r, k, v, w, u):
+    return kops.rwkv6_scan(*(t.contiguous() for t in (r, k, v, w, u)))
+
+
+def _wkv_chunks(impl: str, r, k, v, w, u):
+    """The chunk loop over r, k, v, w [B,S,H,D] -> (y, final state)."""
+    B, S, H, D = r.shape
+    chunk_fn = _wkv_chunk if impl == "xla_seq" else _wkv_chunk_parallel
+    ST = torch.zeros(B, H, D, D, dtype=torch.float32, device=r.device)
+    ys = []
+    for c0 in range(0, S, CHUNK):
+        sl = slice(c0, c0 + CHUNK)
+        yc, ST = chunk_fn(r[:, sl], k[:, sl], v[:, sl], w[:, sl], u, ST)
+        ys.append(yc)
+    return torch.cat(ys, dim=1), ST
+
+
+def _receptance(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                x_prev: torch.Tensor, *lead):
+    """r, k, v [..., H, D] and w [..., H, D] f32 by heads, u [H, D], and
+    the gate g [..., d], from x and its shifted x_prev."""
+    H, D = _dims(cfg)
+    mw, mk, mv, mr, mg = _ddlerp(cfg, p, x, x_prev)
+    dt = x.dtype
+    r, k, v, g = (matmul(m, use(p[name], dt, None, "heads")) for m, name in
+                  ((mr, "wr"), (mk, "wk"), (mv, "wv"), (mg, "wg")))
+    rs, ks, vs = (split_heads(t, H, D, *lead).float() for t in (r, k, v))
+    ws = split_heads(_decay(p, mw), H, D, *lead)
+    u = split_heads(use(p["u"], torch.float32, "heads"), H, D)
+    return rs, ks, vs, ws, u, F.silu(g)
+
+
+def _output(cfg: ModelConfig, p: Params, y: torch.Tensor,
+            g: torch.Tensor) -> torch.Tensor:
+    """ln_x over WKV's y [..., H, D], the gate, ``wo``; on a mesh by the
+    heads' channels, ``wo`` row-parallel."""
+    dt = g.dtype
+    y = merge_heads(y, *(("batch",) + (None,) * (y.ndim - 3)))
+    y = rmsnorm_sharded(y.to(dt), p["ln_x"], cfg.rms_eps) * g
+    return matmul(y, use(p["wo"], dt, "heads", None))
+
+
 def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
                   x_prev: torch.Tensor, return_state: bool = False):
     """Full-sequence time mixing.  x: [B,S,d]; x_prev: x shifted right.
@@ -175,38 +239,15 @@ def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
     Returns out [B,S,d], or (out, final state [B,H,D,D] f32) with
     ``return_state``.
     """
-    H, D = _dims(cfg)
-    B, S, d = x.shape
-    mw, mk, mv, mr, mg = _ddlerp(cfg, p, x, x_prev)
-    dt = x.dtype
-    r = mr @ p["wr"].to(dt)
-    k = mk @ p["wk"].to(dt)
-    v = mv @ p["wv"].to(dt)
-    g = F.silu(mg @ p["wg"].to(dt))
-    w = _decay(p, mw)                                  # [B,S,d] float32
-
-    rs, ks, vs = (t.reshape(B, S, H, D).float() for t in (r, k, v))
-    ws = w.reshape(B, S, H, D)
-    u = p["u"].float().reshape(H, D)
-
+    rs, ks, vs, ws, u, g = _receptance(cfg, p, x, x_prev, "batch", None)
+    args = (rs, ks, vs, ws, u)
     ST = None
     if cfg.scan_impl == "pallas" and not return_state:
-        y = kops.rwkv6_scan(rs, ks, vs, ws, u)
+        y = per_rank(_wkv_kernel, args, lambda pl: pl)
     else:
-        chunk_fn = (_wkv_chunk if cfg.scan_impl == "xla_seq"
-                    else _wkv_chunk_parallel)
-        ST = torch.zeros(B, H, D, D, dtype=torch.float32, device=x.device)
-        ys = []
-        for c0 in range(0, S, CHUNK):
-            sl = slice(c0, c0 + CHUNK)
-            yc, ST = chunk_fn(rs[:, sl], ks[:, sl], vs[:, sl], ws[:, sl], u,
-                              ST)
-            ys.append(yc)
-        y = torch.cat(ys, dim=1)
-
-    y = y.reshape(B, S, d).to(dt)
-    y = rmsnorm(y, p["ln_x"], cfg.rms_eps) * g
-    out = y @ p["wo"].to(dt)
+        y, ST = per_rank(functools.partial(_wkv_chunks, cfg.scan_impl), args,
+                         lambda pl: (pl, state_placements(pl)))
+    out = _output(cfg, p, y, g)
     if return_state:
         return out, ST
     return out
@@ -214,13 +255,18 @@ def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 def rwkv_channel_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
                      x_prev: torch.Tensor) -> torch.Tensor:
+    """On a mesh ``cw_k`` and ``cw_r`` split their columns, ``cw_v`` its
+    rows: kv's partial sums are reduced onto the receptance's columns
+    (``"embed2"``) and the product leaves them split."""
     dt = x.dtype
     sx = x_prev - x
-    xk = x + sx * p["cmu_k"].to(dt)
-    xr = x + sx * p["cmu_r"].to(dt)
-    kk = torch.square(F.relu(xk @ p["cw_k"].to(dt)))
-    kv = kk @ p["cw_v"].to(dt)
-    return torch.sigmoid(xr @ p["cw_r"].to(dt)) * kv
+    xk = x + sx * use(p["cmu_k"], dt, None)
+    xr = x + sx * use(p["cmu_r"], dt, None)
+    kk = torch.square(F.relu(matmul(xk, use(p["cw_k"], dt, None, "mlp"))))
+    kv = matmul(kk, use(p["cw_v"], dt, "mlp", None))
+    rr = torch.sigmoid(matmul(xr, use(p["cw_r"], dt, None, "embed2")))
+    lead = ("batch",) + (None,) * (x.ndim - 2)
+    return rr * shard(kv, *lead, "embed2")
 
 
 # ---------------------------------------------------------------------------
@@ -239,30 +285,30 @@ def rwkv_cache_init(cfg: ModelConfig, batch: int,
     }
 
 
+def rwkv_cache_axes() -> Axes:
+    """Logical axes of one layer's decode state (``rwkv_cache_init``)."""
+    return {"tshift": ("batch", "embed_act"), "cshift": ("batch", "embed_act"),
+            "wkv": ("batch", "heads_act", None, None)}
+
+
+def _wkv_step(r, k, v, w, u, S):
+    """One token of WKV: r, k, v, w [B,H,D], state S [B,H,D,D] ->
+    (y [B,H,D], the new state)."""
+    kv = k[..., :, None] * v[..., None, :]
+    y = torch.einsum("bhk,bhkv->bhv", r, S + u[..., None] * kv)
+    return y, w[..., None] * S + kv
+
+
 def rwkv_decode_time(cfg: ModelConfig, p: Params, x: torch.Tensor,
                      cache: Dict[str, torch.Tensor],
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token time-mix step.  x: [B,1,d] (post-ln1 input)."""
-    H, D = _dims(cfg)
-    B, _, d = x.shape
     xt = x[:, 0, :]
-    mw, mk, mv, mr, mg = _ddlerp(cfg, p, xt, cache["tshift"])
-    dt = x.dtype
-    r = mr @ p["wr"].to(dt)
-    k = mk @ p["wk"].to(dt)
-    v = mv @ p["wv"].to(dt)
-    g = F.silu(mg @ p["wg"].to(dt))
-    w = _decay(p, mw)
-    rs, ks, vs = (t.reshape(B, H, D).float() for t in (r, k, v))
-    ws = w.reshape(B, H, D)
-    u = p["u"].float().reshape(H, D)
+    rs, ks, vs, ws, u, g = _receptance(cfg, p, xt, cache["tshift"], "batch")
     S = cache["wkv"]
-    kv = ks[..., :, None] * vs[..., None, :]
-    y = torch.einsum("bhk,bhkv->bhv", rs, S + u[..., None] * kv)
-    S = ws[..., None] * S + kv
-    y = y.reshape(B, d).to(dt)
-    y = rmsnorm(y, p["ln_x"], cfg.rms_eps) * g
-    out = (y @ p["wo"].to(dt))[:, None, :]
+    # r [B,H,D] and the state [B,H,D,D] split alike on their first 2 dims
+    y, S = per_rank(_wkv_step, (rs, ks, vs, ws, u, S), lambda pl: (pl, pl))
+    out = _output(cfg, p, y, g)[:, None, :]
     return out, {"tshift": xt, "cshift": cache["cshift"], "wkv": S}
 
 

@@ -7,12 +7,16 @@ over the scattered shard, then all-gather: the cross-pod link carries
 1/|inner| of the bytes a flat sum would ship.  ``compressed_psum``:
 int8-quantized sum across one axis (pairs with the error feedback in
 ``optim/compress.py``).  Both return a new tensor and leave ``x`` as it
-is.
+is.  ``all_to_all_rows``: an all-to-all of dim-0 rows with a backward
+(the same exchange reversed).
 """
 from __future__ import annotations
 
+from typing import List, Sequence, Tuple
+
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.device_mesh import DeviceMesh
 
 
@@ -86,3 +90,34 @@ def gloo_cuda_all_gather() -> None:
 
     lib.impl("all_gather_into_tensor", all_gather_into_tensor, "CUDA")
     _GATHER_LIB.append(lib)
+
+
+def _world_splits(pairs: Sequence[Tuple[int, int]]) -> List[int]:
+    out = [0] * dist.get_world_size()
+    for rank, rows in pairs:
+        out[rank] += rows
+    return out
+
+
+class _AllToAllRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, send, recv):
+        ctx.send, ctx.recv = send, recv
+        return funcol.wait_tensor(funcol.all_to_all_single(
+            x.contiguous(), recv, send, dist.group.WORLD))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return funcol.wait_tensor(funcol.all_to_all_single(
+            grad.contiguous(), ctx.send, ctx.recv, dist.group.WORLD)), \
+            None, None
+
+
+def all_to_all_rows(x: torch.Tensor, send: Sequence[Tuple[int, int]],
+                    recv: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """This rank's part of an all-to-all of x's dim-0 rows on the default
+    group: ``send`` lists (rank, rows) in the order x's rows go out,
+    ``recv`` (rank, rows) in the order the result's rows come in, both by
+    ascending rank (ranks not listed exchange no rows with this one).
+    Differentiable: the grad goes back by the reverse exchange."""
+    return _AllToAllRows.apply(x, _world_splits(send), _world_splits(recv))

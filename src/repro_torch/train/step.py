@@ -24,7 +24,8 @@ a plain leaf raises), the params and state are updated in place in that
 layout, and microbatch i is the global rows [i·B/n, (i+1)·B/n) of the
 batch, as the reference splits it, laid out on the batch's own placements
 (``_split_global``: one all-to-all a batch leaf among the ranks that share
-a model coordinate).  The metrics come back as plain tensors.
+a model coordinate, ``parallel/collectives.py`` ``all_to_all_rows``).
+The metrics come back as plain tensors.
 """
 from __future__ import annotations
 
@@ -32,7 +33,6 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.distributed as dist
-import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor
 
 from repro_torch.config.base import RunConfig
@@ -42,6 +42,7 @@ from repro_torch.optim import (
     init_state, lr_at,
 )
 from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.parallel.collectives import all_to_all_rows
 from repro_torch.parallel.context import current_ctx
 from repro_torch.parallel.sharding import check_distributed
 
@@ -134,18 +135,13 @@ def _to_microbatch_order(local: torch.Tensor, mesh, mesh_dims: list,
 
     dest = [rank_of((d * n + u) % D) for u in range(n)]
     src = [rank_of((i * D + d) // n) for i in range(n)]
-    world = dist.get_world_size()
-    send_splits, recv_splits = [0] * world, [0] * world
-    for u in range(n):
-        send_splits[dest[u]] += m
-        recv_splits[src[u]] += m
     # each buffer runs rank by rank, a sender's units in their order
     send_order = sorted(range(n), key=dest.__getitem__)
     recv_order = sorted(range(n), key=src.__getitem__)
     units = local.reshape(n, m, *local.shape[1:])
     send = units[send_order].reshape(local.shape)
-    recv = funcol.wait_tensor(funcol.all_to_all_single(
-        send.contiguous(), recv_splits, send_splits, dist.group.WORLD))
+    recv = all_to_all_rows(send, [(dest[u], m) for u in send_order],
+                           [(src[i], m) for i in recv_order])
     recv = recv.reshape(n, m, *local.shape[1:])
     return recv[[recv_order.index(i) for i in range(n)]].reshape(local.shape)
 

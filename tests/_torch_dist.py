@@ -74,6 +74,13 @@ def run_ranks(fn, world, tmp_path, *args, limit=RANKS_LIMIT):
     """Run ``fn(rank, world, *args)`` in ``world`` spawned processes of one
     ``gloo`` group; returns their results in rank order, or raises with the
     failed ranks' tracebacks, or after ``limit`` seconds."""
+    return join_ranks(start_ranks(fn, world, tmp_path, *args, limit=limit))
+
+
+def start_ranks(fn, world, tmp_path, *args, limit=RANKS_LIMIT):
+    """``run_ranks`` without waiting: the ranks start, and ``join_ranks``
+    of the handle returned waits for them (the caller may work
+    meanwhile, the reference's runs)."""
     out_dir = tmp_path / f"ranks-{fn.__name__}"
     out_dir.mkdir()
     torch.save(args, out_dir / "args.pt")
@@ -83,7 +90,12 @@ def run_ranks(fn, world, tmp_path, *args, limit=RANKS_LIMIT):
              for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + limit
+    return procs, out_dir, time.monotonic() + limit, limit
+
+
+def join_ranks(handle):
+    procs, out_dir, deadline, limit = handle
+    world = len(procs)
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
     hung = [r for r, p in enumerate(procs) if p.is_alive()]

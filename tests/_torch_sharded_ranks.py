@@ -16,6 +16,8 @@ from repro_torch.config import (
 )
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gmm as gm
+from repro_torch.kernels import mamba_scan as mb
+from repro_torch.kernels import rwkv6_scan as rw
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import (
     cache_logical_axes, decode_step, loss_fn, param_axes, prefill,
@@ -25,7 +27,8 @@ from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.parallel.collectives import gloo_cuda_all_gather
 from repro_torch.parallel.context import distribute, sharding_ctx
 from repro_torch.parallel.sharding import (
-    batch_shardings, distribute_tree, full_tree, make_ctx, tree_shardings,
+    batch_shardings, distribute_tree, full_tree, make_ctx,
+    sanitize_shardings, tree_shardings,
 )
 from repro_torch.train import make_opt_state, make_train_step
 
@@ -69,13 +72,15 @@ def _placements(tree):
 def _reset_launches():
     fa.flash_attention.route_launches = dict.fromkeys(fa.ROUTES, 0)
     gm.gmm.route_launches = dict.fromkeys(gm.ROUTES, 0)
+    rw.rwkv6_scan.launches = mb.mamba_scan.launches = 0
 
 
 def _launches():
-    """This rank's kernel launches by route since ``_reset_launches`` (the
-    kernels count CUDA launches only)."""
+    """This rank's kernel launches (by route where a kernel has routes)
+    since ``_reset_launches`` (the kernels count CUDA launches only)."""
     return {"flash": dict(fa.flash_attention.route_launches),
-            "gmm": dict(gm.gmm.route_launches)}
+            "gmm": dict(gm.gmm.route_launches),
+            "wkv": rw.rwkv6_scan.launches, "scan": mb.mamba_scan.launches}
 
 
 def jobs_rank(rank, world, jobs):
@@ -183,29 +188,35 @@ def prefill_rank(rank, world, device, cfg, mesh_shape, params, prompt,
 
 
 def decode_rank(rank, world, device, cfg, mesh_shape, params, prompt,
-                max_len, ticks, policy="baseline"):
+                max_len, ticks, policy="baseline", shard_seq=False):
     """Decode (``baseline`` unless ``policy`` says otherwise) on a (data,
     model) or (pod, data, model) mesh: prefill, then ``ticks`` greedy
-    decode steps through the sharded cache.  Returns each step's logits
-    (gathered), the tokens fed, this rank's mesh coordinate, its own block
-    of every cache entry after the prefill and after the last step, and
-    whether the cache kept its layout (``cache_logical_axes``)."""
+    decode steps through the sharded cache, under the ``shard_seq`` decode
+    rules (batch whole, the K/V rows split over data) if asked.  Returns
+    each step's logits (gathered), the tokens fed, this rank's mesh
+    coordinate, its own block of every cache entry after the prefill and
+    after each step (``blocks``: the last), and whether the cache kept
+    its layout (``cache_logical_axes``, sanitized)."""
     mesh = _mesh(mesh_shape, device)
-    ctx = make_ctx(mesh, ShardingConfig(policy=policy), decode=True)
+    ctx = make_ctx(mesh, ShardingConfig(policy=policy, shard_seq=shard_seq),
+                   decode=True)
     pd = distribute_tree(_to(params, device),
                          tree_shardings(ctx, param_axes(cfg)))
     b = _to(prompt, device)
     bd = distribute_tree(b, batch_shardings(ctx, b))
-    want = {k: _pairs(sh.placements) for k, sh in
-            tree_shardings(ctx, cache_logical_axes(cfg)).items()}
+    want = None
     logits, tokens, kept = [], [], True
     _reset_launches()
     with sharding_ctx(ctx), torch.no_grad():
         lg, cache = prefill(cfg, pd, bd, max_len)
         prefill_launches = _launches()
+        want = {k: _pairs(sh.placements) for k, sh in sanitize_shardings(
+            tree_shardings(ctx, cache_logical_axes(cfg, shard_seq=shard_seq)),
+            cache).items()}
         kept = _placements(cache) == want
         prefill_blocks = {k: v.to_local().clone().cpu()
                           for k, v in cache.items()}
+        tick_blocks = []
         for _ in range(ticks):
             full = lg.full_tensor()
             logits.append(full.cpu())
@@ -214,11 +225,13 @@ def decode_rank(rank, world, device, cfg, mesh_shape, params, prompt,
             lg, cache = decode_step(cfg, pd, distribute(tok, "batch", None),
                                     cache)
             kept = kept and _placements(cache) == want
+            tick_blocks.append({k: v.to_local().clone().cpu()
+                                for k, v in cache.items()})
         logits.append(lg.full_tensor().cpu())
     return dict(logits=logits, tokens=tokens, coord=mesh.get_coordinate(),
-                blocks={k: v.to_local().cpu() for k, v in cache.items()},
-                prefill_blocks=prefill_blocks, kept=kept,
-                prefill_launches=prefill_launches)
+                blocks=tick_blocks[-1] if ticks else prefill_blocks,
+                tick_blocks=tick_blocks, prefill_blocks=prefill_blocks,
+                kept=kept, prefill_launches=prefill_launches)
 
 
 def global_norm_rank(rank, world, device, mesh_shape, tree):
@@ -284,22 +297,3 @@ def split_rank(rank, world, device, mesh_shape, cases):
                 ok = ok and t.placements == bd[k].placements and \
                     torch.equal(t.full_tensor().cpu(), want[k][i])
     return ok
-
-
-def refuse_family_rank(rank, world, device, cfg, mesh_shape):
-    """``loss_fn`` of a family that does not run on a mesh, on DTensors:
-    the ``NotImplementedError`` it raises, or None."""
-    from repro_torch.data import make_batch
-    from repro_torch.models import init_params
-    mesh = _mesh(mesh_shape, device)
-    ctx = make_ctx(mesh, ShardingConfig(policy="fsdp"))
-    params = init_params(cfg, torch.Generator().manual_seed(0), device)
-    batch = make_batch(cfg, 4, 16, torch.Generator().manual_seed(1), device)
-    pd = distribute_tree(params, tree_shardings(ctx, param_axes(cfg)))
-    bd = distribute_tree(batch, batch_shardings(ctx, batch))
-    try:
-        with sharding_ctx(ctx), torch.no_grad():
-            loss_fn(cfg, pd, bd)
-    except NotImplementedError as e:
-        return str(e)
-    return None

@@ -3,8 +3,7 @@ the registry's shape cells, the H100 roofline terms, ``op_analysis``'s
 FLOPs, bytes and collectives on a 2x2 fake mesh, ``lower_cell`` on tiny
 dense and MoE cells over 4- and 8-rank fake meshes (argument bytes a rank
 equal to the sum of its sanitized blocks; the dense prefill's FLOPs a
-rank within 5% of ``model_flops / n_dev``), and a cell of a family left
-to slice (g3) failing loudly.
+rank within 5% of ``model_flops / n_dev``).
 
 The fake process group (``torch.testing._internal``) is process-global,
 so everything that starts one runs in a subprocess.
@@ -256,15 +255,3 @@ def test_dense_prefill_flops_a_rank_match_model_flops(lowered, ms):
     assert art["useful_flops_ratio"] == pytest.approx(1.0, abs=0.05)
     assert art["model_flops_per_device"] == pytest.approx(
         art["model_flops_total"] / art["devices"])
-
-
-def test_a_family_left_to_g3_fails_loudly(tmp_path):
-    env = dict(os.environ, PYTHONPATH=SRC)
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "rwkv6-3b", "--shape", "decode_32k", "--out", str(tmp_path)],
-        capture_output=True, text=True, timeout=LIMIT, env=env)
-    assert r.returncode == 1
-    assert "FAIL rwkv6-3b x decode_32k x single: NotImplementedError" \
-        in r.stdout
-    assert not list(tmp_path.iterdir())

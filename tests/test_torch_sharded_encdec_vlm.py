@@ -16,8 +16,8 @@ in f32 on the tiny configs (seamless-m4t-medium: 2 + 2 layers, 4 heads of
   ticks equal to the reference cache's slice at its mesh coordinate,
   the cache laid out by ``cache_logical_axes`` throughout.
 
-Then RWKV6 and the hybrid still refuse a mesh.  The rank functions are in
-``_torch_sharded_ranks.py``; the 4 ranks run once for the module.
+The rank functions are in ``_torch_sharded_ranks.py``; the 4 ranks run
+once for the module.
 """
 import pytest
 
@@ -39,7 +39,6 @@ from _torch_parity import batches, configs, port_params
 
 ARCHS = {"encdec": "seamless-m4t-medium", "vlm": "qwen2-vl-72b"}
 POLICIES = ("fsdp", "baseline")
-REFUSED = ("rwkv6-3b", "jamba-1.5-large-398b")
 B, S, MICRO = 4, 16, 2
 PROMPT, MAX_LEN, TICKS = 8, 16, 3
 MESH = (2, 2)
@@ -105,9 +104,6 @@ def ranks(cases, tmp_path_factory):
             jobs[f"{name}/{policy}/decode"] = (R.decode_rank, (
                 "cpu", c["tcfg"], MESH, c["tp"], c["prompt"][1], MAX_LEN,
                 TICKS, policy))
-    for arch in REFUSED:
-        jobs[f"refuse/{arch}"] = (R.refuse_family_rank, (
-            "cpu", configs(arch, dtype="float32")[1], MESH))
     return D.run_ranks(R.jobs_rank, 4, tmp_path_factory.mktemp("encvlm"),
                        jobs)
 
@@ -203,11 +199,3 @@ def test_sharded_cache_blocks_are_reference_slices(ranks, references, cases,
                 assert _scaled(blocks[k], want) <= 1e-5, k
         if family == "encdec":
             assert got["blocks"]["xk"].shape[2] == S
-
-
-@pytest.mark.parametrize("arch", REFUSED)
-def test_rwkv6_and_hybrid_still_refuse_a_mesh(ranks, arch):
-    for r in ranks:
-        m = r[f"refuse/{arch}"]
-        assert m is not None and "on a DeviceMesh is not ported" in m
-        assert ("(g3b)" if arch == "rwkv6-3b" else "(g3c)") in m

@@ -18,7 +18,13 @@ each held to the same run on one device on the card:
   ticks with flash (6 ``f32`` launches a rank in the prefill: encoder,
   decoder self, cross), held as (b); (e) qwen2-vl-72b's ``baseline``
   prefill (patches, then text; M-RoPE positions [3, B, S]) and 3 ticks
-  with flash, held as (b).
+  with flash, held as (b); (f) rwkv6-3b (2 heads of 32: the WKV6 kernel
+  takes D 32 or 64) and jamba (one superblock with experts) ``fsdp``
+  losses with the scan kernels on each rank's heads and ``inner``
+  channels (2 WKV6 launches a rank; 7 selective-scan and 1 flash ``f32``
+  launches a rank) within 1e-5, and jamba's decode under the ``shard_seq``
+  rules (the K/V rows split over data, the ticks crossing the blocks'
+  boundary) held as (b), its prefill through the same 7 + 1 launches.
 
 Skips without a CUDA card.  On the card (no JAX needed):
 
@@ -40,7 +46,7 @@ def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch.kernels import _build
-    for name in ("flash_attention", "gmm"):
+    for name in ("flash_attention", "gmm", "rwkv6_scan", "mamba_scan"):
         _build.load(name)        # built once, before the ranks load it
 
 
@@ -205,3 +211,49 @@ def test_sharded_encdec_and_vlm_on_the_card(tmp_path):
                 assert _scaled(got, w) <= 1e-4
             assert [t.flatten().tolist() for t in r[k]["tokens"]] == \
                 [w[:, -1].argmax(-1).tolist() for w in want[k][:-1]]
+
+
+@pytest.mark.gpu
+def test_sharded_rwkv6_and_hybrid_scans_on_the_card(tmp_path):
+    _card()
+    import dataclasses
+    from repro_torch.models import decode_step, loss_fn, prefill
+    rwkv = get_tiny_config("rwkv6-3b")
+    rwkv = rwkv.replace(rwkv=dataclasses.replace(rwkv.rwkv, head_dim=32),
+                        num_heads=2, num_kv_heads=2, head_dim=32)
+    cfgs = {"rwkv": rwkv, "hybrid": get_tiny_config("jamba-1.5-large-398b")}
+    cfgs = {k: c.replace(dtype="float32", attention_impl="pallas",
+                         scan_impl="pallas") for k, c in cfgs.items()}
+    params = {k: _params(c) for k, c in cfgs.items()}
+    batch = _batch(cfgs["rwkv"], B, S, 4)
+    prompt = _batch(cfgs["hybrid"], 2, 6, 5, targets=False)
+    jobs = {k: (R.loss_rank, ("cuda", {k: c}, MESH, params[k], batch))
+            for k, c in cfgs.items()}
+    jobs["seq"] = (R.decode_rank, ("cuda", cfgs["hybrid"], MESH,
+                                   params["hybrid"], prompt, MAX_LEN, 4,
+                                   "fsdp", True))
+    ranks = D.run_ranks(R.jobs_rank, 4, tmp_path, jobs)
+    want, steps = {}, []
+    with torch.no_grad():
+        for k, c in cfgs.items():
+            want[k] = float(loss_fn(c, _on(params[k], "cuda"),
+                                    _on(batch, "cuda"))[0])
+        p = _on(params["hybrid"], "cuda")
+        lg, cache = prefill(cfgs["hybrid"], p, _on(prompt, "cuda"), MAX_LEN)
+        for _ in range(4):
+            steps.append(lg.cpu())
+            tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            lg, cache = decode_step(cfgs["hybrid"], p, tok, cache)
+        steps.append(lg.cpu())
+    for r in ranks:
+        for k in cfgs:
+            got = r[k][k]
+            assert abs(float(got["loss"]) - want[k]) <= 1e-5 * abs(want[k])
+        assert r["rwkv"]["rwkv"]["launches"]["wkv"] == rwkv.num_layers
+        hy = r["hybrid"]["hybrid"]["launches"]
+        assert hy["scan"] == 7 and hy["flash"]["f32"] == 1
+        seq = r["seq"]
+        assert seq["kept"] and seq["prefill_launches"]["scan"] == 7
+        assert seq["prefill_launches"]["flash"]["f32"] == 1
+        for got, w in zip(seq["logits"], steps):
+            assert _scaled(got, w) <= 1e-4
