@@ -111,9 +111,11 @@ Phases, each of which raises on failure (exit code != 0):
  15. trainer - the Trainer loop (``train/loop.py``) over a two-site
                fabric in a temp dir (~36 GB free needed, removed at the
                end), qwen3-4b with the phase-13 setup, a Zipf corpus of 4
-               shards at its vocab: (a) 36 layers, one warm-up step then 3
+               shards at its vocab: (a) 12 of the 36 layers (a depth cut
+               that keeps the smoke's time down), one warm-up step then 3
                timed steps through ``Trainer.train`` (host clock, synced;
-               no save) beside phase 13's bare step, and the peak memory;
+               no save) beside 3 bare steps at that depth on the next
+               batches, and the peak memory;
                (b) 2 layers, a straggle at step 1 and a crash at step 3,
                a save every 2 steps: restarts 1, dropped syncs 1,
                checkpoints [2, 4], and the batch read after the restore
@@ -154,6 +156,17 @@ Phases, each of which raises on failure (exit code != 0):
  18. train --tiny - ``python -m repro_torch.launch.train --tiny`` for
                seamless-m4t-medium and qwen2-vl-72b on the card, each in
                its own process with a crash at step 6: exit 0, restarts=1;
+ 18b. quickstart - ``examples/quickstart_torch.py``'s ``main`` on the
+               card (a two-site fabric, tiny qwen3-4b trained 20 steps
+               through ``Trainer`` with a save every 10, 2 requests served
+               on the plain attention path), then the same 2 requests
+               served again from the trained weights with
+               ``attention_impl="pallas"``: flash launches by route (head
+               dim 16: ``mma_sync``), more than 0, and each prefill's
+               logits within 1e-2 (relative RMS, bf16) of the plain run's;
+               both runs' tokens printed (for a flipped token, each run's
+               logit gap between its top two at that position); its loss
+               line, WAN seconds, bytes shipped and wall seconds;
  19. ep      - dbrx-132b's MoE layer at full width (d 6144, 16 experts,
                top-4, d_ff 10,752, bf16, capacity factor 1.25) across 4
                ranks of a (data=1, model=4) mesh, ``parallel/ep_moe.py``
@@ -275,7 +288,8 @@ TRAIN_ARCH = "qwen3-4b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 2, 2048, 2
 TRAIN_STEPS = 4
 TRAIN_CHECK_LAYERS = 2     # card vs CPU: ~1 B params in f32
-TRAINER_STEPS = 3          # timed Trainer steps at full depth
+TRAINER_STEPS = 3          # timed Trainer steps, then as many bare ones
+TRAINER_LAYERS = 12        # of qwen3-4b's 36, for those steps
 TRAINER_SHARDS = 4         # corpus shards, as launch/train.py writes
 CKPT_PROMPTS = 4           # the qwen3-8b traffic's first 4 prompts
 CKPT_LAYERS = 8            # of qwen3-4b's 36: 3.2 GB of bf16 weights
@@ -2064,13 +2078,14 @@ def corpus_tokens(cursor: int, n: int, shard_tokens: int, n_shards: int,
     return flat[(cursor + np.arange(n)) % len(flat)]
 
 
-def trainer(torch, card: str, bare_ms: float):
-    """The Trainer loop on the card: (a) full-width, full-depth qwen3-4b for
-    3 timed steps; (b) 2 layers with a straggle, a crash and checkpoints
-    through the fabric, each part of a step timed; (c) a cold restore, bit
-    for bit, then the eval step through the f32 flash kernel; (d) the
-    training launcher in a subprocess.  Every fabric file lives in a temp
-    dir, removed when the phase ends."""
+def trainer(torch, card: str):
+    """The Trainer loop on the card: (a) full-width qwen3-4b at
+    TRAINER_LAYERS layers for 3 timed steps beside 3 bare ones; (b) 2
+    layers with a straggle, a crash and checkpoints through the fabric,
+    each part of a step timed; (c) a cold restore, bit for bit, then the
+    eval step through the f32 flash kernel; (d) the training launcher in a
+    subprocess.  Every fabric file lives in a temp dir, removed when the
+    phase ends."""
     import shutil
     import tempfile
     from repro_torch.checkpoint import CheckpointManager
@@ -2107,8 +2122,10 @@ def trainer(torch, card: str, bare_ms: float):
         return tr, s, fabric.network
 
     try:
-        # (a) full width and depth: the loop's own cost beside the bare step
-        cfg = get_config(TRAIN_ARCH).replace(param_dtype="float32",
+        # (a) full width, TRAINER_LAYERS deep: the loop's own cost beside
+        # the bare step
+        cfg = get_config(TRAIN_ARCH).replace(num_layers=TRAINER_LAYERS,
+                                             param_dtype="float32",
                                              dtype="bfloat16", remat="full",
                                              layers_per_step=1)
         tr, s, net = stack("full", cfg, None, ckpt_every=1000)
@@ -2120,11 +2137,17 @@ def trainer(torch, card: str, bare_ms: float):
         res = tr.train(TRAINER_STEPS)
         torch.cuda.synchronize()
         full_ms = (time.perf_counter() - t0) / TRAINER_STEPS * 1e3
+        t0 = time.perf_counter()
+        for _ in range(TRAINER_STEPS):      # bare: the step on a fresh batch
+            tr.params, tr.opt_state, _ = tr.step_fn(
+                tr.params, tr.opt_state, tr.pipeline.next_batch())
+        torch.cuda.synchronize()
+        bare_ms = (time.perf_counter() - t0) / TRAINER_STEPS * 1e3
         full_losses = warm.losses + res.losses
         full_peak = torch.cuda.max_memory_allocated() / 1e9
         if not all(math.isfinite(x) for x in full_losses) or \
                 res.checkpoints or warm.checkpoints:
-            raise AssertionError(f"full-depth trainer: losses "
+            raise AssertionError(f"{cfg.num_layers}-layer trainer: losses "
                                  f"{full_losses}, checkpoints "
                                  f"{warm.checkpoints + res.checkpoints}")
         full = dict(layers=cfg.num_layers, params=n_params(tr.params),
@@ -2132,9 +2155,9 @@ def trainer(torch, card: str, bare_ms: float):
                     bare_step_ms=bare_ms, loop_overhead_ms=full_ms - bare_ms,
                     max_memory_allocated_gb=full_peak,
                     wan_clock_s=net.clock)
-        print(f"trainer full depth: {full_ms:.1f} ms a step through the "
-              f"Trainer, {bare_ms:.1f} bare; peak {full_peak:.1f} GB",
-              flush=True)
+        print(f"trainer at {cfg.num_layers} layers: {full_ms:.1f} ms a step "
+              f"through the Trainer, {bare_ms:.1f} bare; peak "
+              f"{full_peak:.1f} GB", flush=True)
         del tr, s, net, warm, res
         gc.collect()
         torch.cuda.empty_cache()
@@ -2356,7 +2379,7 @@ def trainer(torch, card: str, bare_ms: float):
                microbatches=TRAIN_MICRO, state_dtype="int8",
                shard_tokens=shard_tokens, shards=TRAINER_SHARDS,
                disk_free_gb=disk.free / 1e9, disk_total_gb=disk.total / 1e9,
-               full_depth=full, faults=faults, cold_restore=restored,
+               timed=full, faults=faults, cold_restore=restored,
                launcher=launcher, seconds=time.perf_counter() - t_phase)
     print("trainer " + json.dumps(res), flush=True)
     return res
@@ -2693,6 +2716,120 @@ def tiny_train_launchers(torch):
             res[arch] = train_launcher(torch, arch, root)
     print("train --tiny " + json.dumps(res), flush=True)
     return res
+
+
+QUICKSTART_PROMPTS = ([1, 2, 3], [9, 8, 7, 6])
+
+
+def _load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _top2_gap(torch, cfg, params, tokens) -> float:
+    """The gap between the two largest last-position logits of a prefill
+    of ``tokens`` on ``cfg``'s path."""
+    from repro_torch.models import prefill
+    batch = {"tokens": torch.tensor([tokens], dtype=torch.long,
+                                    device="cuda"),
+             "positions": torch.arange(len(tokens), dtype=torch.int32,
+                                       device="cuda")[None]}
+    logits, _ = prefill(cfg, params, batch, max_len=len(tokens))
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def quickstart(torch, card: str) -> dict:
+    """Phase 18b (module docstring): the quickstart's own run, then its
+    requests again on the flash kernel, the prefill logits of both runs
+    recorded by wrapping the engine's ``prefill``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve import engine as engine_mod
+    qs = _load_example("quickstart_torch")
+    real_prefill = engine_mod.prefill
+    seen = []
+
+    def recorded(cfg_, p, batch, max_len):
+        logits, cache = real_prefill(cfg_, p, batch, max_len=max_len)
+        seen.append(logits.float())
+        return logits, cache
+
+    engine_mod.prefill = recorded
+    try:
+        t0 = time.perf_counter()
+        out = qs.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        plain, seen = seen, []
+        cfg = out.cfg.replace(attention_impl="pallas")
+        reset_flash(fa)
+        t1 = time.perf_counter()
+        eng = engine_mod.ServeEngine(cfg, out.trainer.params, slots=2,
+                                     max_len=64, device="cuda")
+        for rid, prompt in enumerate(QUICKSTART_PROMPTS):
+            eng.add_request(engine_mod.Request(rid=rid, prompt=prompt,
+                                               max_new_tokens=8))
+        eng.run_until_done()
+        torch.cuda.synchronize()
+        flash_s = time.perf_counter() - t1
+        launches = dict(fa.flash_attention.route_launches)
+        n_flash = fa.flash_attention.launches
+    finally:
+        engine_mod.prefill = real_prefill
+    if out.engine.cfg.attention_impl != "xla":
+        raise AssertionError("the quickstart served on "
+                             f"{out.engine.cfg.attention_impl!r}")
+    if n_flash == 0 or launches["mma_sync"] != n_flash:
+        raise AssertionError(f"quickstart on pallas: {n_flash} flash "
+                             f"launches by route {launches}, want > 0, "
+                             "all mma_sync")
+    if len(plain) != len(QUICKSTART_PROMPTS) or len(seen) != len(plain):
+        raise AssertionError(f"{len(plain)} and {len(seen)} prefills for "
+                             f"{len(QUICKSTART_PROMPTS)} requests")
+    errs = []
+    for got, want in zip(seen, plain):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("non-finite prefill logits on pallas")
+        errs.append(rms_rel_err(torch, got, want))
+    if max(errs) > RMS_TOL["bfloat16"]:
+        raise AssertionError(f"quickstart prefill logits on flash: "
+                             f"relative RMS {errs} > {RMS_TOL['bfloat16']}")
+    tokens = {"xla": [out.engine.requests[r].output
+                      for r in range(len(QUICKSTART_PROMPTS))],
+              "pallas": [eng.requests[r].output
+                         for r in range(len(QUICKSTART_PROMPTS))]}
+    flips = []
+    for r, prompt in enumerate(QUICKSTART_PROMPTS):
+        a, b = tokens["xla"][r], tokens["pallas"][r]
+        if len(b) != len(a) or not eng.requests[r].done:
+            raise AssertionError(f"request {r} on pallas: {b}")
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is not None:
+            ctx = list(prompt) + a[:j]
+            with torch.no_grad():
+                flips.append(dict(
+                    request=r, position=j, xla=a[j], pallas=b[j],
+                    xla_gap=_top2_gap(torch, out.cfg, out.trainer.params,
+                                      ctx),
+                    pallas_gap=_top2_gap(torch, cfg, out.trainer.params,
+                                         ctx)))
+    res = out.result
+    summary = dict(
+        card=card, loss_first=res.losses[0], loss_last=res.losses[-1],
+        checkpoints=res.checkpoints, restarts=res.restarts,
+        wan_s=out.network.clock, bytes_shipped=out.network.bytes_sent,
+        main_s=main_s, flash_serve_s=flash_s, flash_launches=n_flash,
+        flash_launches_by_route=launches, prefill_rms_rel_err=errs,
+        tokens=tokens, flips=flips)
+    if not all(math.isfinite(x) for x in res.losses) or \
+            res.losses[-1] >= res.losses[0]:
+        raise AssertionError(f"quickstart losses {res.losses}")
+    print("quickstart " + json.dumps(summary), flush=True)
+    return summary
 
 
 def tiny_serve(torch):
@@ -4497,10 +4634,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"train phase: {time.perf_counter() - t_train:.1f} s", flush=True)
 
-    # 15. the Trainer loop over the fabric: full depth, then faults and
+    # 15. the Trainer loop over the fabric: 12 layers, then faults and
     # checkpoints at 2 layers, a cold restore with flash, the launcher
     phase(f"trainer {TRAIN_ARCH}")
-    trres = trainer(torch, card, tres["ms_per_step"])
+    trres = trainer(torch, card)
 
     # 16.-18. seamless-m4t-medium (enc-dec) at full width and depth, then
     # qwen2-vl-72b (VLM) at full width and 16 layers, then the training
@@ -4511,6 +4648,16 @@ def main() -> int:
     vres = vlm(torch, card)
     phase("train --tiny")
     tiny_train_launchers(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 18b. the quickstart example on the card, then its requests again on
+    # the flash kernel
+    t_qs = time.perf_counter()
+    phase("quickstart")
+    qres = quickstart(torch, card)
+    print(f"quickstart phase: {time.perf_counter() - t_qs:.1f} s",
+          flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4550,6 +4697,8 @@ def main() -> int:
         "encdec_launches": eres["flash_launches"],
         "encdec_decode_launches": eres["serve"]["flash_launches_per_tick"],
         "vlm_launches": vres["flash_launches"],
+        "quickstart_launches": qres["flash_launches"],
+        "quickstart_route_launches": qres["flash_launches_by_route"],
         "encdec_cases": [{k: c[k] for k in (
             "B", "Sq", "Skv", "dtype", "route", "kernel_ms", "bound_ms",
             "bound_by", "library_ms", "max_err")}

@@ -21,11 +21,13 @@ Nothing is compiled, so there is no ``memory_analysis`` or
 ``cost_analysis``: the counts are of the eager program (its traffic is
 unfused), and ``trace_s`` (the run's wall time) takes the place of the
 reference's ``lower_s``/``compile_s``; there is no ``xla_cost_analysis``.
-Every family runs, so no cell of the matrix fails (jamba's train cells
-step the Mamba token loop eagerly on ``meta``, ~5 h a cell on 8 CPU
-cores); long_500k, the RWKV6 and hybrid cell that turns
-on ``shard_seq``, decodes on a cache whose rows are split over the data
-axis.  A train cell's 4 microbatches are the reference's global row
+Every family runs, so no cell of the matrix fails; the Mamba token loop
+is not stepped on ``meta`` but charged what it dispatches
+(``models/mamba.py`` ``_MetaChunk``: probed at a few lengths and
+extrapolated, as the reference traces its loop once as a ``lax.scan``),
+so jamba's train and prefill cells trace in minutes; long_500k, the
+RWKV6 and hybrid cell that turns on ``shard_seq``, decodes on a cache
+whose rows are split over the data axis.  A train cell's 4 microbatches are the reference's global row
 blocks, so its step moves the batch once, by an all-to-all
 (``train/step.py`` ``_split_global``), counted with the other
 collectives, as are the hybrid's all-to-alls of in_proj's column blocks

@@ -19,6 +19,12 @@ reference's ``jax.checkpoint``-ed chunks do (the reference also asserts
 that its chunk count divides S).  Without grad one scan runs over the
 whole sequence; the sums are the same either way.
 
+On ``meta`` tensors (the dry-run) a run of tokens is not stepped:
+``_MetaChunk`` returns outputs of the token loop's shapes and charges
+the active ``launch/op_analysis.py`` ``OpAnalysis`` what the loop would
+dispatch, forward and backward, probed at a few lengths on ``meta`` and
+extrapolated (the reference traces its loop once, as a ``lax.scan``).
+
 On a mesh (DTensors under ``parallel/context.py``) each rank holds its
 own ``inner`` channels: ``in_proj`` is column-parallel, and its output's
 contiguous column blocks are traded by one all-to-all so that each rank
@@ -32,8 +38,9 @@ state keeps ``conv``/``ssm`` on ``inner_act``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import op_analysis
 from repro_torch.models.layers import (
     Axes, Params, dense_init, matmul, per_rank, rmsnorm, rmsnorm_init,
     state_placements, torch_dtype, use,
@@ -217,6 +225,120 @@ def _scan_chunk(A, dt, b, c, xs, h0):
     return torch.stack(ys, dim=1), h
 
 
+def _eager_chunk(remat: bool, A, dt, b, c, xs, h0):
+    """``_scan_chunk``, under ``checkpoint`` with ``remat``."""
+    if remat:
+        return checkpoint(_scan_chunk, A, dt, b, c, xs, h0,
+                          use_reentrant=False)
+    return _scan_chunk(A, dt, b, c, xs, h0)
+
+
+def _chunk(remat: bool, A, dt, b, c, xs, h0):
+    """A run of tokens: ``_eager_chunk``, or on ``meta`` ``_MetaChunk``."""
+    if xs.device.type == "meta":
+        return _MetaChunk.apply(remat, A, dt, b, c, xs, h0)
+    return _eager_chunk(remat, A, dt, b, c, xs, h0)
+
+
+# which of _scan_chunk's inputs (A, dt, b, c, xs, h0) run over the tokens
+_TOKENS = (False, True, True, True, True, False)
+
+
+def _layout(t: torch.Tensor, grad: bool):
+    return tuple(t.shape), t.stride(), t.dtype, grad
+
+
+def _like(lay, k: Optional[int]) -> torch.Tensor:
+    """A ``meta`` tensor of ``_layout`` ``lay``, its dim 1 of k tokens."""
+    shape, stride, dtype, grad = lay
+    if k is not None:
+        shape = (shape[0], k) + shape[2:]
+    t = torch.empty_strided(shape, stride, dtype=dtype, device="meta")
+    return t.requires_grad_(grad)
+
+
+def _probe(remat: bool, hooked: bool, lays, out_grads, k: int):
+    """The ``window`` record of ``_eager_chunk`` on k tokens of inputs
+    laid out as ``lays``, run under a saved-tensor hook if ``hooked``: its
+    forward, or with ``out_grads`` (the layouts of the grads of y and hT,
+    None where an output has none) its backward, the recompute
+    included."""
+    with op_analysis.alone(hooked) as oa:
+        ins = [_like(lay, k if tok else None)
+               for lay, tok in zip(lays, _TOKENS)]
+        with torch.enable_grad() if remat else torch.no_grad():
+            if out_grads is None:
+                with oa.window() as rec:
+                    out = _eager_chunk(remat, *ins)
+                return rec
+            out = _eager_chunk(remat, *ins)
+        pairs = [(o, _like(g, k if i == 0 else None))
+                 for i, (o, g) in enumerate(zip(out, out_grads))
+                 if g is not None]
+        want = [t for t in ins if t.requires_grad]
+        with oa.window() as rec:     # the grads live at its end, as the loop's
+            got = torch.autograd.grad([o for o, _ in pairs], want,
+                                      [g for _, g in pairs])
+        del got
+        return rec
+
+
+def _charge(oa, remat: bool, hooked: bool, lays, out_grads, n: int):
+    """Charge ``oa`` what ``_probe`` counts at n tokens (once a layout)."""
+    key = (remat, hooked, lays, out_grads)
+    oa.charge(oa.extrapolated(key, functools.partial(_probe, *key), n))
+
+
+def _made(oa, shapes_like) -> Tuple[torch.Tensor, ...]:
+    """Fresh ``meta`` tensors, made without a count and tracked as live."""
+    with oa.muted() if oa is not None else contextlib.nullcontext():
+        out = tuple(torch.empty(s, dtype=d, device="meta")
+                    for s, d in shapes_like)
+    if oa is not None:
+        oa.track(out)
+    return out
+
+
+class _MetaChunk(torch.autograd.Function):
+    """``_eager_chunk`` on ``meta`` tensors without stepping its tokens:
+    y [B,C,di] and hT [B,di,N] in f32, and under an active ``OpAnalysis``
+    the counts the loop dispatches (``_charge``): the forward, and in the
+    backward the recompute and the backward.  The inputs are saved as the
+    checkpoint saves them (through the hooks in use: an enclosing remat
+    region drops them); the outputs are all the loop keeps live past its
+    forward.  A run of more than 32 tokens costs six probes, once per
+    layout."""
+
+    @staticmethod
+    def forward(ctx, remat, A, dt, b, c, xs, h0):
+        ctx.set_materialize_grads(False)
+        args = (A, dt, b, c, xs, h0)
+        ctx.save_for_backward(*args)
+        ctx.remat = remat
+        ctx.hooked = op_analysis.saving_hooked()
+        ctx.lays = tuple(_layout(t, g) for t, g in
+                         zip(args, ctx.needs_input_grad[1:]))
+        oa = op_analysis.active()
+        B, C, di = xs.shape
+        if oa is not None:
+            _charge(oa, remat, ctx.hooked, ctx.lays, None, C)
+        return _made(oa, [((B, C, di), torch.float32),
+                          ((B, di, A.shape[1]), torch.float32)])
+
+    @staticmethod
+    def backward(ctx, gy, ghT):
+        oa = op_analysis.active()
+        grads = tuple(None if g is None else _layout(g, False)
+                      for g in (gy, ghT))
+        need = ctx.needs_input_grad[1:]
+        if oa is not None:
+            _charge(oa, ctx.remat, ctx.hooked, ctx.lays, grads,
+                    ctx.lays[4][0][1])
+        made = iter(_made(oa, [(lay[0], lay[2])
+                               for lay, g in zip(ctx.lays, need) if g]))
+        return (None,) + tuple(next(made) if g else None for g in need)
+
+
 def _scan(impl: str, return_state: bool, dt, A, b, c, xf):
     """The full-sequence scan on the channels these tensors hold -> y, or
     (y, hT) with ``return_state``."""
@@ -229,13 +351,12 @@ def _scan(impl: str, return_state: bool, dt, A, b, c, xf):
         ys = []
         for s in range(0, S, CHUNK):
             cut = slice(s, s + CHUNK)
-            y_c, h = checkpoint(_scan_chunk, A, dt[:, cut], b[:, cut],
-                                c[:, cut], xf[:, cut], h,
-                                use_reentrant=False)
+            y_c, h = _chunk(True, A, dt[:, cut], b[:, cut], c[:, cut],
+                            xf[:, cut], h)
             ys.append(y_c)
         y = torch.cat(ys, dim=1)
     else:
-        y, h = _scan_chunk(A, dt, b, c, xf, h)
+        y, h = _chunk(False, A, dt, b, c, xf, h)
     return (y, h) if return_state else y
 
 

@@ -41,7 +41,8 @@ _FORBIDDEN = re.compile(
 
 @pytest.mark.parametrize(
     "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    + sorted((ROOT / "examples").glob("*_torch.py")),
+    + sorted((ROOT / "examples").glob("*_torch.py"))
+    + sorted((ROOT / "experiments").glob("*_torch.py")),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_never_imports_jax_or_repro(path):
     hits = _FORBIDDEN.findall(path.read_text())
