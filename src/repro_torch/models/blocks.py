@@ -13,6 +13,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.config.base import ModelConfig
 from repro_torch.models.attention import (
     attention_apply, attention_axes, attention_decode, attention_init,
@@ -69,9 +70,12 @@ def _ffn(cfg: ModelConfig, p: Params, h: torch.Tensor,
 def block_apply(cfg: ModelConfig, p: Params, h: torch.Tensor,
                 positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  h: [B,S,d] -> (h, aux_loss)."""
-    a = attention_apply(cfg, p["attn"], rmsnorm(h, p["ln1"], cfg.rms_eps),
-                        positions, causal=True)
-    return _ffn(cfg, p, h + _residual(a))
+    with tracing.span("attention"):
+        a = attention_apply(cfg, p["attn"],
+                            rmsnorm(h, p["ln1"], cfg.rms_eps), positions,
+                            causal=True)
+    with tracing.span("ffn"):
+        return _ffn(cfg, p, h + _residual(a))
 
 
 def block_prefill(cfg: ModelConfig, p: Params, h: torch.Tensor,

@@ -40,6 +40,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
+from repro_torch import tracing
 from repro_torch.config.base import ENCDEC, HYBRID, SSM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks as B
@@ -155,8 +156,10 @@ def _cat_seq(f: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 
 def _logits(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
-    h = L.rmsnorm(h, p["final_norm"], cfg.rms_eps)
-    return shard(L.unembed(cfg, p["embed"], h), "batch", None, "vocab_act")
+    with tracing.span("logits"):
+        h = L.rmsnorm(h, p["final_norm"], cfg.rms_eps)
+        return shard(L.unembed(cfg, p["embed"], h), "batch", None,
+                     "vocab_act")
 
 
 # ---------------------------------------------------------------------------
@@ -223,7 +226,8 @@ def _apply_group(apply_fn: BlockFn, group: List[Params], ctx,
     with sharding_ctx(ctx):
         h = shard(h, "batch", None, "embed_act")
         for lp in group:
-            h, a = apply_fn(lp, h)
+            with tracing.span("block"):
+                h, a = apply_fn(lp, h)
             if a is not None:
                 aux = aux + a
     return h, aux
@@ -256,7 +260,8 @@ def forward(cfg: ModelConfig, p: Params, batch: Batch,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B,S,V], aux_loss)."""
     positions = batch["positions"]
-    h = _embed_inputs(cfg, p, batch)
+    with tracing.span("embed"):
+        h = _embed_inputs(cfg, p, batch)
     blocks = p["dec_blocks"] if cfg.family == ENCDEC else p["blocks"]
     if cfg.family == ENCDEC:
         enc_h, enc_positions = _encode(cfg, p, batch)
@@ -306,6 +311,12 @@ def loss_fn(cfg: ModelConfig, p: Params, batch: Batch,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy + z-loss + aux; targets < 0 are masked."""
     logits, aux = forward(cfg, p, batch)
+    with tracing.span("loss"):
+        return _loss(cfg, batch, logits, aux)
+
+
+def _loss(cfg: ModelConfig, batch: Batch, logits: torch.Tensor,
+          aux: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     targets = batch["targets"]
     if _prepends_frontend(cfg, batch):
         # frontend positions carry no next-token target; score text tail only

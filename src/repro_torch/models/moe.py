@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch import tracing
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (
@@ -126,20 +127,21 @@ def _experts(cfg: ModelConfig, p: Params, xe: torch.Tensor) -> torch.Tensor:
     on each rank's experts (``"experts"`` on ``model``; an ``fsdp``
     weight's ``"embed"`` gathered first), the buffer cut to match and the
     outputs gathered back."""
-    dt = xe.dtype
-    w = [use(p["wi_gate"], dt, "experts", None, None),
-         use(p["wi_up"], dt, "experts", None, None),
-         use(p["wo"], dt, "experts", None, None)]
-    if not isinstance(xe, DTensor):
-        return _expert_products(cfg, *w, xe)
-    full = xe.placements
-    xe = shard(xe, "experts_act", None, None)
-    pl = xe.placements
-    ye = local_map(functools.partial(_expert_products, cfg),
-                   out_placements=list(pl),
-                   in_placements=tuple(t.placements for t in w) + (pl,),
-                   device_mesh=xe.device_mesh)(*w, xe)
-    return ye.redistribute(ye.device_mesh, full)
+    with tracing.span("moe.experts"):
+        dt = xe.dtype
+        w = [use(p["wi_gate"], dt, "experts", None, None),
+             use(p["wi_up"], dt, "experts", None, None),
+             use(p["wo"], dt, "experts", None, None)]
+        if not isinstance(xe, DTensor):
+            return _expert_products(cfg, *w, xe)
+        full = xe.placements
+        xe = shard(xe, "experts_act", None, None)
+        pl = xe.placements
+        ye = local_map(functools.partial(_expert_products, cfg),
+                       out_placements=list(pl),
+                       in_placements=tuple(t.placements for t in w) + (pl,),
+                       device_mesh=xe.device_mesh)(*w, xe)
+        return ye.redistribute(ye.device_mesh, full)
 
 
 def _on_tokens(fn, n_out: int, *args):
@@ -161,8 +163,26 @@ def _route(cfg: ModelConfig, router: torch.Tensor, xf: torch.Tensor, C: int):
     [E, C+1, d], the assignments' experts and slots [T*k], whether each
     was kept, their gate weights [T, k], the aux loss)."""
     m = cfg.moe
-    dt = torch_dtype(cfg.dtype)
     T, d = xf.shape
+    E, k = m.num_experts, m.experts_per_token
+    with tracing.span("moe.route"):
+        ids_flat, pos_flat, keep, gate_w, aux = _slots(m, router, xf, C)
+        tracing.count("moe.kept", keep)
+        tracing.count("moe.slots", E * (C + 1))
+
+    # ---- dispatch: scatter tokens into [E, C+1, d] (slot C = dropped) --
+    with tracing.span("moe.dispatch"):
+        dt = torch_dtype(cfg.dtype)
+        upd = xf.to(dt).repeat_interleave(k, dim=0)           # [T*k, d]
+        xe = torch.zeros((E * (C + 1), d), dtype=dt, device=xf.device)
+        xe.index_add_(0, ids_flat * (C + 1) + pos_flat, upd)
+    return xe.view(E, C + 1, d), ids_flat, pos_flat, keep, gate_w, aux
+
+
+def _slots(m, router: torch.Tensor, xf: torch.Tensor, C: int):
+    """Router, top-k, aux loss and each assignment's slot in its expert:
+    (experts and slots [T*k], kept [T*k], gate weights [T, k], aux)."""
+    T = xf.shape[0]
     E, k = m.num_experts, m.experts_per_token
     logits = xf.float() @ router                              # [T, E]
     probs = torch.softmax(logits, dim=-1)
@@ -186,22 +206,18 @@ def _route(cfg: ModelConfig, router: torch.Tensor, xf: torch.Tensor, C: int):
     pos_flat = torch.empty_like(rank).scatter_(0, order, rank)
     keep = pos_flat < C                                       # drop overflow
     pos_flat = torch.where(keep, pos_flat, C)                 # park drops
-
-    # ---- dispatch: scatter tokens into [E, C+1, d] (slot C = dropped) --
-    upd = xf.to(dt).repeat_interleave(k, dim=0)               # [T*k, d]
-    xe = torch.zeros((E * (C + 1), d), dtype=dt, device=xf.device)
-    xe.index_add_(0, ids_flat * (C + 1) + pos_flat, upd)
-    return xe.view(E, C + 1, d), ids_flat, pos_flat, keep, gate_w, aux
+    return ids_flat, pos_flat, keep, gate_w, aux
 
 
 def _combine(ye: torch.Tensor, ids_flat, pos_flat, keep, gate_w):
     """Gather each assignment's output back and sum a token's k of them,
     weighted (a dropped one by 0)."""
     T, k = gate_w.shape
-    back = ye[ids_flat, pos_flat]                             # [T*k, d]
-    back = back * (keep[:, None] * gate_w.reshape(T * k)[:, None]).to(
-        ye.dtype)
-    return back.reshape(T, k, -1).sum(dim=1)
+    with tracing.span("moe.combine"):
+        back = ye[ids_flat, pos_flat]                         # [T*k, d]
+        back = back * (keep[:, None] * gate_w.reshape(T * k)[:, None]).to(
+            ye.dtype)
+        return back.reshape(T, k, -1).sum(dim=1)
 
 
 def _moe_tokens(cfg: ModelConfig, p: Params, xf: torch.Tensor,

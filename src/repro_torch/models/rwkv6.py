@@ -34,6 +34,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (
@@ -239,15 +240,18 @@ def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
     Returns out [B,S,d], or (out, final state [B,H,D,D] f32) with
     ``return_state``.
     """
-    rs, ks, vs, ws, u, g = _receptance(cfg, p, x, x_prev, "batch", None)
-    args = (rs, ks, vs, ws, u)
-    ST = None
-    if cfg.scan_impl == "pallas" and not return_state:
-        y = per_rank(_wkv_kernel, args, lambda pl: pl)
-    else:
-        y, ST = per_rank(functools.partial(_wkv_chunks, cfg.scan_impl), args,
-                         lambda pl: (pl, state_placements(pl)))
-    out = _output(cfg, p, y, g)
+    with tracing.span("rwkv.time_mix"):
+        rs, ks, vs, ws, u, g = _receptance(cfg, p, x, x_prev, "batch", None)
+        args = (rs, ks, vs, ws, u)
+        ST = None
+        with tracing.span("rwkv.wkv6"):
+            if cfg.scan_impl == "pallas" and not return_state:
+                y = per_rank(_wkv_kernel, args, lambda pl: pl)
+            else:
+                y, ST = per_rank(functools.partial(_wkv_chunks,
+                                                   cfg.scan_impl), args,
+                                 lambda pl: (pl, state_placements(pl)))
+        out = _output(cfg, p, y, g)
     if return_state:
         return out, ST
     return out
@@ -258,15 +262,16 @@ def rwkv_channel_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """On a mesh ``cw_k`` and ``cw_r`` split their columns, ``cw_v`` its
     rows: kv's partial sums are reduced onto the receptance's columns
     (``"embed2"``) and the product leaves them split."""
-    dt = x.dtype
-    sx = x_prev - x
-    xk = x + sx * use(p["cmu_k"], dt, None)
-    xr = x + sx * use(p["cmu_r"], dt, None)
-    kk = torch.square(F.relu(matmul(xk, use(p["cw_k"], dt, None, "mlp"))))
-    kv = matmul(kk, use(p["cw_v"], dt, "mlp", None))
-    rr = torch.sigmoid(matmul(xr, use(p["cw_r"], dt, None, "embed2")))
-    lead = ("batch",) + (None,) * (x.ndim - 2)
-    return rr * shard(kv, *lead, "embed2")
+    with tracing.span("rwkv.channel_mix"):
+        dt = x.dtype
+        sx = x_prev - x
+        xk = x + sx * use(p["cmu_k"], dt, None)
+        xr = x + sx * use(p["cmu_r"], dt, None)
+        kk = torch.square(F.relu(matmul(xk, use(p["cw_k"], dt, None, "mlp"))))
+        kv = matmul(kk, use(p["cw_v"], dt, "mlp", None))
+        rr = torch.sigmoid(matmul(xr, use(p["cw_r"], dt, None, "embed2")))
+        lead = ("batch",) + (None,) * (x.ndim - 2)
+        return rr * shard(kv, *lead, "embed2")
 
 
 # ---------------------------------------------------------------------------

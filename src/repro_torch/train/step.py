@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
+from repro_torch import tracing
 from repro_torch.config.base import RunConfig
 from repro_torch.models import loss_fn
 from repro_torch.optim import (
@@ -208,6 +209,7 @@ def make_eval_step(run: RunConfig) -> Callable:
 
     @torch.no_grad()
     def eval_step(params: Params, batch: Batch) -> Dict[str, torch.Tensor]:
-        return loss_fn(cfg, params, batch)[1]
+        with tracing.unit("eval_step", batch["tokens"]):
+            return loss_fn(cfg, params, batch)[1]
 
     return eval_step
