@@ -6,9 +6,9 @@
 Phases, each of which raises on failure (exit code != 0):
   1. card    - requires CUDA; prints the card's name and power limit;
   2. build   - compiles every kernel (flash_attention.cu, rwkv6_scan.cu,
-               mamba_scan.cu, gmm.cu) from the sources in this checkout,
-               one nvcc each, in parallel (sm_90a); prints build times and
-               ptxas registers and spills;
+               mamba_scan.cu, gmm.cu, moe_permute.cu) from the sources in
+               this checkout, one nvcc each, in parallel (sm_90a); prints
+               build times and ptxas registers and spills;
   3. kernel  - holds each kernel against its plain PyTorch version at the
                main paths' shapes and times kernel, plain version, the
                library call where one exists (a yardstick only; the port
@@ -23,7 +23,10 @@ Phases, each of which raises on failure (exit code != 0):
                (zeroing the flags, the kernel) are also timed apart; the
                selective scan's final state is checked beside y, each case
                names its states a thread and B = 1 is timed beside B = 4;
-               then each kernel wrapper must raise on an input that
+               the MoE's dispatch and combine at qwen3-moe's scoring layer
+               and at decode ticks (T 1 and 16, C = k): the dispatch equal
+               to its plain version bit for bit, the combine within one
+               ulp; then each kernel wrapper must raise on an input that
                requires grad under grad mode;
   4. serve   - full-width qwen3-8b (bf16, seeded random weights) behind
                ServeEngine: 8 requests, 4 slots; checks the flash kernel's
@@ -81,17 +84,20 @@ Phases, each of which raises on failure (exit code != 0):
  10. forward - full-width, full-depth qwen3-moe-30b-a3b (48 layers, 128
                experts, top-8, bf16, seed 0, attention_impl and scan_impl
                "pallas") over 4 x 2048 seeded tokens through forward and
-               loss_fn: 144 gmm and 48 flash launches each, finite logits
-               and loss, the bf16 distance to the plain path (einsum and
+               loss_fn: 144 gmm, 48 flash and 48 each of the MoE
+               dispatch and combine launches each, finite logits and
+               loss, the bf16 distance to the plain path (einsum and
                plain attention) printed; every gmm and flash launch on its
                wgmma route;
  11. serve   - the same model behind ServeEngine with the qwen3-8b
-               traffic: 144 gmm launches (wgmma route) a prefill and a
-               decode tick, 48 flash launches a prefill;
- 12. f32     - the same model at 4 layers in f32: the kernel path (gmm +
-               flash) against the plain path within 1e-4 of the logits'
-               scale, every routing difference between the two printed by
-               layer and token, and prefill + decode against forward;
+               traffic: 144 gmm launches (wgmma route) and 48 each of the
+               dispatch and combine a prefill and a decode tick, 48 flash
+               launches a prefill;
+ 12. f32     - the same model at 4 layers in f32: the kernel path (gmm,
+               flash, dispatch and combine) against the plain path within
+               1e-4 of the logits' scale, every routing difference between
+               the two printed by layer and token, and prefill + decode
+               against forward;
  13. train   - full-width, full-depth qwen3-4b (36 layers, 4.4 B f32
                params, bf16 activations, seed 0) through make_train_step:
                4 steps of 2 x 2048 tokens in 2 microbatches, remat "full",
@@ -539,13 +545,16 @@ def kernel_cases(torch, fa):
     return results
 
 
-def grad_guard(torch, fa, rw, mb, gm):
+def grad_guard(torch, fa, rw, mb, gm, mp):
     """Each kernel wrapper raises on a CUDA input that requires grad under
     grad mode (the kernels have no backward), and launches under
     ``torch.no_grad()``."""
     def t(*shape, dtype=torch.float32):
         return torch.randn(*shape, device="cuda", dtype=dtype)
 
+    # 4 tokens, top-2 of 4 experts, capacity 3: one assignment dropped
+    moe_ids = torch.tensor([[0, 1], [1, 2], [2, 3], [3, 0]], device="cuda")
+    moe_pos = torch.tensor([[0, 0], [1, 0], [1, 0], [1, 3]], device="cuda")
     calls = {
         "flash_attention": (fa.flash_attention, lambda: (
             t(1, 2, 64, 64, dtype=torch.bfloat16),
@@ -562,6 +571,11 @@ def grad_guard(torch, fa, rw, mb, gm):
             t(64, 64, dtype=torch.bfloat16),
             t(2, 64, 64, dtype=torch.bfloat16),
             torch.tensor([32, 32], dtype=torch.int32, device="cuda"))),
+        "moe_dispatch": (mp.moe_dispatch, lambda: (
+            t(4, 64, dtype=torch.bfloat16), moe_ids, moe_pos, 4, 3)),
+        "moe_combine": (mp.moe_combine, lambda: (
+            t(4, 4, 64, dtype=torch.bfloat16), moe_ids, moe_pos,
+            torch.full((4, 2), 0.5, device="cuda"))),
     }
     for name, (fn, make) in calls.items():
         args = make()
@@ -614,6 +628,7 @@ PORT_KERNELS = {
     "rwkv6_scan": ("wkv6_chunk",),
     "mamba_scan": ("mamba_scan_kernel",),
     "gmm": ("gmm_bf16_kernel", "gmm_f32_kernel", "gmm_wgmma_kernel"),
+    "moe_permute": ("slot_tokens", "dispatch_rows", "combine_rows"),
 }
 # a demangled kernel name's own symbol, after "void " and its namespaces:
 # "void (anonymous namespace)::mamba_scan_kernel<16>(float const*, ...)"
@@ -1656,11 +1671,98 @@ def gmm_cases(torch, gm):
     return results
 
 
+def ulps(torch, got, want) -> float:
+    """The widest gap of ``got`` from ``want`` in units of the last place
+    of got's dtype at the larger of the two magnitudes."""
+    g, w = got.double(), want.double()
+    mag = torch.maximum(g.abs(), w.abs()).clamp(
+        min=torch.finfo(got.dtype).tiny)
+    ulp = torch.finfo(got.dtype).eps * torch.exp2(torch.floor(torch.log2(mag)))
+    return float(((g - w).abs() / ulp).max())
+
+
+def moe_cases(torch, mp):
+    """The MoE dispatch and combine kernels against their plain versions
+    on the card, bf16, routed by the layer's ``_slots`` with
+    ``probe_moe_permute``'s Zipf prior: at qwen3-moe's scoring layer
+    (8192 tokens, top-8 of 128 experts, C 640, d 2048) and at decode
+    ticks (1 and 16 tokens, C = k).  The dispatch must equal its plain
+    version bit for bit (a copy); the combine is held within one bf16 ulp
+    of its plain version, since both round each weighted row to bf16 and
+    sum the k of them in f32 in the same order, and only the f32 adds'
+    contraction could part them.  A random buffer is combined, its
+    parking slot NaN, which no kept row reads.  Each wrapper must count
+    one launch a call.  Times kernel and plain version by CUDA events,
+    beside the bound (bytes at 3.35 TB/s)."""
+    from repro_torch.kernels import probe_moe_permute as pp
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    results = []
+    for T in (pp.T, 16, 1):
+        x, ids, pos, gate_w, C = pp.routes(SEED, T)
+        E, d = pp.E, pp.D
+        kept = int((pos < C).sum())
+        n0 = (mp.moe_dispatch.launches, mp.moe_combine.launches)
+        xe = mp.moe_dispatch(x, ids, pos, E, C)
+        ye = torch.randn(E, C + 1, d, generator=gen, device="cuda").bfloat16()
+        ye[:, C] = float("nan")
+        out = mp.moe_combine(ye, ids, pos, gate_w)
+        torch.cuda.synchronize()
+        if (mp.moe_dispatch.launches, mp.moe_combine.launches) != \
+                (n0[0] + 1, n0[1] + 1):
+            raise AssertionError(f"T {T}: one call each launched "
+                                 f"{mp.moe_dispatch.launches - n0[0]}, "
+                                 f"{mp.moe_combine.launches - n0[1]}")
+        xe_plain = mp.moe_dispatch_plain(x, ids, pos, E, C)
+        ye[:, C] = 0.0
+        out_plain = mp.moe_combine_plain(ye, ids, pos, gate_w)
+        dispatch_equal = torch.equal(xe.view(torch.int16),
+                                     xe_plain.view(torch.int16))
+        combine_ulps = ulps(torch, out, out_plain)
+        if not dispatch_equal or bool(xe[:, C].any()) or \
+                not combine_ulps <= 1.0:         # NaN: a parking row read
+            raise AssertionError(f"moe_permute T {T}: dispatch equal "
+                                 f"{dispatch_equal}, parking slot zeros "
+                                 f"{not bool(xe[:, C].any())}, combine "
+                                 f"{combine_ulps} ulps")
+        bound = pp.bounds_ms(T, C, kept)
+        res = dict(case="cell" if T == pp.T else f"decode {T}", T=T, E=E,
+                   k=pp.K, C=C, d=d, kept=kept, dispatch_equal=True,
+                   combine_ulps=combine_ulps,
+                   dispatch_ms=cuda_ms(torch, lambda: mp.moe_dispatch(
+                       x, ids, pos, E, C), iters=20),
+                   combine_ms=cuda_ms(torch, lambda: mp.moe_combine(
+                       ye, ids, pos, gate_w), iters=20),
+                   dispatch_plain_ms=cuda_ms(torch, lambda: (
+                       mp.moe_dispatch_plain(x, ids, pos, E, C)), iters=3,
+                       warmup=1),
+                   combine_plain_ms=cuda_ms(torch, lambda: (
+                       mp.moe_combine_plain(ye, ids, pos, gate_w)), iters=3,
+                       warmup=1),
+                   dispatch_bound_ms=bound[0], combine_bound_ms=bound[1])
+        results.append(res)
+        print("kernel case moe_permute " + json.dumps(res), flush=True)
+        del x, xe, ye, out, xe_plain, out_plain
+    return results
+
+
+def reset_moe(mp):
+    """Zero the MoE dispatch and combine wrappers' launch counts."""
+    mp.moe_dispatch.launches = mp.moe_combine.launches = 0
+
+
+def moe_launches(mp) -> tuple:
+    """(dispatch, combine) launches since ``reset_moe``."""
+    return mp.moe_dispatch.launches, mp.moe_combine.launches
+
+
 def moe_forward(torch, card: str, cfg, params):
-    """Full-width qwen3-moe forward and loss through the gmm and flash
-    kernels (3 gmm and 1 flash launch a layer)."""
+    """Full-width qwen3-moe forward and loss through the gmm, flash and
+    MoE dispatch and combine kernels (3 gmm, 1 flash, 1 dispatch and 1
+    combine launch a layer)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import moe_permute as mp
     from repro_torch.models import forward, loss_fn
 
     B, S, L = MOE_BATCH, RWKV_SEQ, cfg.num_layers
@@ -1672,16 +1774,20 @@ def moe_forward(torch, card: str, cfg, params):
     gm.gmm.launches = 0
     gm.gmm.route_launches = dict.fromkeys(gm.ROUTES, 0)
     reset_flash(fa)
+    reset_moe(mp)
     t = time.perf_counter()
     logits, aux = forward(cfg, params, batch)
     torch.cuda.synchronize()
     forward_ms = (time.perf_counter() - t) * 1e3
     launches = (gm.gmm.launches, fa.flash_attention.launches)
     by_route = dict(gm.gmm.route_launches)
-    if launches != (3 * L, L) or by_route["wgmma"] != 3 * L:
+    moe_n = moe_launches(mp)
+    if launches != (3 * L, L) or by_route["wgmma"] != 3 * L or \
+            moe_n != (L, L):
         raise AssertionError(f"one forward launched (gmm, flash) = "
                              f"{launches}, want {(3 * L, L)}, gmm by route "
-                             f"{gm.gmm.route_launches}, want all wgmma")
+                             f"{gm.gmm.route_launches}, want all wgmma; "
+                             f"(dispatch, combine) = {moe_n}, want {(L, L)}")
     flash_by_route = flash_on_route(fa, L, f"{cfg.name} forward")
     if tuple(logits.shape) != (B, S, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()) or \
@@ -1694,7 +1800,8 @@ def moe_forward(torch, card: str, cfg, params):
     loss_ms = (time.perf_counter() - t) * 1e3
     if (gm.gmm.launches, fa.flash_attention.launches) != (6 * L, 2 * L) \
             or gm.gmm.route_launches["wgmma"] != 6 * L \
-            or fa.flash_attention.route_launches["wgmma"] != 2 * L:
+            or fa.flash_attention.route_launches["wgmma"] != 2 * L \
+            or moe_launches(mp) != (2 * L, 2 * L):
         raise AssertionError("loss_fn did not run each kernel per layer, "
                              "gmm on the wgmma route")
     if not bool(torch.isfinite(loss)):
@@ -1715,6 +1822,7 @@ def moe_forward(torch, card: str, cfg, params):
                gmm_launches_by_route=by_route,
                flash_launches=launches[1],
                flash_launches_by_route=flash_by_route,
+               moe_dispatch_launches=moe_n[0], moe_combine_launches=moe_n[1],
                max_memory_allocated_gb=peak_gb,
                bf16_kernel_vs_plain_path_max_err=bf16_err,
                max_abs_logit=float(logits.float().abs().max()), profile=prof)
@@ -1723,28 +1831,37 @@ def moe_forward(torch, card: str, cfg, params):
 
 
 def moe_serve(torch, card: str, cfg, params):
-    """qwen3-moe behind ServeEngine: 3 gmm launches a layer in every
-    prefill and every decode tick, the flash kernel in each prefill."""
+    """qwen3-moe behind ServeEngine: 3 gmm launches and one each of the
+    MoE dispatch and combine a layer in every prefill and every decode
+    tick, the flash kernel in each prefill."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import moe_permute as mp
     prompts = prompts_for(cfg)
     L = cfg.num_layers
     gm.gmm.launches = 0
     gm.gmm.route_launches = dict.fromkeys(gm.ROUTES, 0)
     reset_flash(fa)
+    reset_moe(mp)
     _, res = drive_engine(torch, cfg, params, prompts)
     launches = (gm.gmm.launches, fa.flash_attention.launches)
-    want = (3 * L * (len(prompts) + res["ticks"]), L * len(prompts))
-    if launches != want or gm.gmm.route_launches["wgmma"] != want[0]:
+    calls = L * (len(prompts) + res["ticks"])
+    want = (3 * calls, L * len(prompts))
+    moe_n = moe_launches(mp)
+    if launches != want or gm.gmm.route_launches["wgmma"] != want[0] or \
+            moe_n != (calls, calls):
         raise AssertionError(f"serving launched (gmm, flash) = {launches}, "
                              f"want {want}; gmm by route "
-                             f"{gm.gmm.route_launches}, want all wgmma")
+                             f"{gm.gmm.route_launches}, want all wgmma; "
+                             f"(dispatch, combine) = {moe_n}, want "
+                             f"{(calls, calls)}")
     flash_on_route(fa, want[1], f"{cfg.name} serving")
     by_route = dict(gm.gmm.route_launches)
     prof = profile_ticks(torch, cfg, params, prompts)
     res = dict(card=card, arch=cfg.name, layers=L, **res,
                gmm_launches=launches[0], gmm_launches_by_route=by_route,
-               flash_launches=launches[1], profile=prof)
+               flash_launches=launches[1], moe_dispatch_launches=moe_n[0],
+               moe_combine_launches=moe_n[1], profile=prof)
     print("serve " + json.dumps(res), flush=True)
     return res
 
@@ -1773,6 +1890,7 @@ def moe_f32(torch, card: str, cfg):
     (their error is printed).  At least one sequence must remain."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import moe_permute as mp
     from repro_torch.models import decode_step, forward, prefill
     from repro_torch.models import moe as moe_mod
     c32 = cfg.replace(num_layers=MOE_F32_LAYERS, dtype="float32",
@@ -1796,10 +1914,14 @@ def moe_f32(torch, card: str, cfg):
         n0 = gm.gmm.launches
         f0 = gm.gmm.route_launches["mma_sync"]
         reset_flash(fa)
+        reset_moe(mp)
         lo_k = forward(c32, p32, batch)[0]
         if gm.gmm.launches != n0 + 3 * MOE_F32_LAYERS or \
                 gm.gmm.route_launches["mma_sync"] != f0 + 3 * MOE_F32_LAYERS:
             raise AssertionError("the f32 forward did not run the f32 gmm")
+        if moe_launches(mp) != (MOE_F32_LAYERS, MOE_F32_LAYERS):
+            raise AssertionError(f"the f32 forward launched (dispatch, "
+                                 f"combine) {moe_launches(mp)}")
         flash_on_route(fa, MOE_F32_LAYERS, "f32 forward", route="f32")
         lo_x = forward(c32.replace(scan_impl="xla", attention_impl="xla"),
                        p32, batch)[0]
@@ -3809,10 +3931,12 @@ def _reset_launches():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gm
     from repro_torch.kernels import mamba_scan as mb
+    from repro_torch.kernels import moe_permute as mp
     from repro_torch.kernels import rwkv6_scan as rw
     fa.flash_attention.route_launches = dict.fromkeys(fa.ROUTES, 0)
     gm.gmm.route_launches = dict.fromkeys(gm.ROUTES, 0)
     rw.rwkv6_scan.launches = mb.mamba_scan.launches = 0
+    reset_moe(mp)
 
 
 def _launches() -> dict:
@@ -3821,10 +3945,12 @@ def _launches() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gm
     from repro_torch.kernels import mamba_scan as mb
+    from repro_torch.kernels import moe_permute as mp
     from repro_torch.kernels import rwkv6_scan as rw
     return dict(flash=dict(fa.flash_attention.route_launches),
                 gmm=dict(gm.gmm.route_launches),
-                wkv=rw.rwkv6_scan.launches, scan=mb.mamba_scan.launches)
+                wkv=rw.rwkv6_scan.launches, scan=mb.mamba_scan.launches,
+                moe=moe_launches(mp))
 
 
 def _distribute_as(tree, shardings, dtype):
@@ -4377,7 +4503,9 @@ def check_round(n: int, ranks: list, ref_errs: dict) -> None:
                       + json.dumps(dict(d, rank=r["rank"])), flush=True)
             if c16["launches"]["gmm"]["wgmma"] != 3 * L or \
                     c16["launches"]["flash"]["wgmma"] != L or \
-                    c32["launches"]["gmm"]["mma_sync"] != 3 * L:
+                    c32["launches"]["gmm"]["mma_sync"] != 3 * L or \
+                    tuple(c16["launches"]["moe"]) != (L, L) or \
+                    tuple(c32["launches"]["moe"]) != (L, L):
                 raise AssertionError(f"rank {r['rank']} (c) launches "
                                      f"{c16['launches']} {c32['launches']}")
             if c32["loss_err"] > 1e-5 or not c32["keep_equal"] or \
@@ -4448,6 +4576,7 @@ def sharded_phase(torch, card: str) -> dict:
     """Phase 20: every family sharded on a (data 2, model 2) DeviceMesh,
     each sub-phase held to the same run on one device, in the rounds of
     rank processes of ``SHARD_ROUNDS``; see the module docstring."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gm
     from repro_torch.kernels import mamba_scan as mb
@@ -4459,6 +4588,7 @@ def sharded_phase(torch, card: str) -> dict:
           f"the collectives through the host; four cards: nccl, one a "
           f"rank); mesh (data, model) = {SHARD_MESH}", flush=True)
     t_phase = time.perf_counter()
+    _build.load("moe_permute")     # built here, before the ranks load it
     free, total = torch.cuda.mem_get_info(0)
     print(f"sharded: {(total - free) / 1e9:.2f} GB of {total / 1e9:.2f} in "
           f"use on card 0 at the start", flush=True)
@@ -4519,8 +4649,10 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gm
     from repro_torch.kernels import mamba_scan as mb
+    from repro_torch.kernels import moe_permute as mp
     from repro_torch.kernels import rwkv6_scan as rw
-    names = ("flash_attention", "rwkv6_scan", "mamba_scan", "gmm")
+    names = ("flash_attention", "rwkv6_scan", "mamba_scan", "gmm",
+             "moe_permute")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.load, names))
@@ -4536,12 +4668,13 @@ def main() -> int:
     # 3. kernels vs plain versions
     phase("kernel")
     cases = kernel_cases(torch, fa)
-    grad_guard(torch, fa, rw, mb, gm)
+    grad_guard(torch, fa, rw, mb, gm, mp)
     wcases = wkv_cases(torch, rw)
     clock_hz = max_sm_clock_hz()
     print(f"max SM clock {clock_hz / 1e6:.0f} MHz", flush=True)
     mcases = mamba_cases(torch, mb, clock_hz)
     gcases = gmm_cases(torch, gm)
+    pcases = moe_cases(torch, mp)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4611,7 +4744,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase(f"serve {MOE_ARCH}")
-        moe_serve(torch, card, cfg, params)
+        qserve = moe_serve(torch, card, cfg, params)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -4683,6 +4816,7 @@ def main() -> int:
     gbig = gcases[0]    # bf16, 128 x 641 rows, 2048 -> 768: the forward's
     if gbig["route"] != "wgmma" or gbig["prior_ms"] is None:
         raise AssertionError(f"the forward's gmm shape took {gbig['route']}")
+    pbig = pcases[0]    # the scoring cell's layer: 8192 tokens, C 640
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -4788,6 +4922,32 @@ def main() -> int:
             r["c_bfloat16"]["launches"]["gmm"]
             for r in shres["rounds"][1]["ranks"]],
         "sharded_cases": shres["kernel_cases"]["gmm"],
+    }, {
+        "name": "moe_permute",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_permute.cu",
+        "replaces": None,
+        "tpu_kernel": None,
+        "launches": {"dispatch": qfwd["moe_dispatch_launches"],
+                     "combine": qfwd["moe_combine_launches"]},
+        "serve_launches": {"dispatch": qserve["moe_dispatch_launches"],
+                           "combine": qserve["moe_combine_launches"]},
+        "sharded_loss_launches_per_rank": [
+            r["c_bfloat16"]["launches"]["moe"]
+            for r in shres["rounds"][1]["ranks"]],
+        "dispatch_equal": all(c["dispatch_equal"] for c in pcases),
+        "combine_max_ulps": max(c["combine_ulps"] for c in pcases),
+        "ms": {"dispatch": pbig["dispatch_ms"],
+               "combine": pbig["combine_ms"]},
+        "plain_ms": {"dispatch": pbig["dispatch_plain_ms"],
+                     "combine": pbig["combine_plain_ms"]},
+        "bound_ms": {"dispatch": pbig["dispatch_bound_ms"],
+                     "combine": pbig["combine_bound_ms"]},
+        "bound_by": "bytes",
+        "library_ms": None,
+        "cases": [{k: c[k] for k in (
+            "case", "C", "kept", "dispatch_ms", "combine_ms",
+            "dispatch_bound_ms", "combine_bound_ms")} for c in pcases],
     }]}), flush=True)
 
     # 22. result

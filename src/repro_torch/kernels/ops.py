@@ -8,7 +8,9 @@ come back in the model's layout, with no copies.  The selective scan
 takes the model's layout as it is.  The grouped matmul takes rows sorted
 by group (``gmm_sorted``, the reference's wrapper of that name), a table
 of tile -> group (``gmm_padded``, the reference's Pallas interface) or the
-MoE capacity buffer [E, C+1, d] (``gmm_equal``).
+MoE capacity buffer [E, C+1, d] (``gmm_equal``).  The MoE's dispatch into
+that buffer and combine out of it take each token's k experts and slots
+as [T, k] (``moe_dispatch``, ``moe_combine``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gmm as _gmm
 from repro_torch.kernels import mamba_scan as _mb
+from repro_torch.kernels import moe_permute as _mp
 from repro_torch.kernels import rwkv6_scan as _rw
 
 
@@ -98,3 +101,19 @@ def gmm_padded(lhs: torch.Tensor, rhs: torch.Tensor,
 def gmm_equal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: [G,R,K]; w: [G,K,N] -> [G,R,N] (``einsum("grk,gkn->grn")``)."""
     return _gmm.gmm_equal(x.contiguous(), w.contiguous())
+
+
+def moe_dispatch(x: torch.Tensor, ids: torch.Tensor, pos: torch.Tensor,
+                 num_experts: int, capacity: int) -> torch.Tensor:
+    """x: [T,d]; ids, pos: [T,k] int64 (``pos == capacity``: dropped) ->
+    [E, C+1, d]: each kept row in its slot, zeros in every other row."""
+    return _mp.moe_dispatch(x.contiguous(), ids.contiguous(),
+                            pos.contiguous(), num_experts, capacity)
+
+
+def moe_combine(ye: torch.Tensor, ids: torch.Tensor, pos: torch.Tensor,
+                gate_w: torch.Tensor) -> torch.Tensor:
+    """ye: [E, C+1, d]; ids, pos, gate_w: [T,k] -> [T,d]: each token's
+    kept rows weighted by their gates and summed (a dropped one adds 0)."""
+    return _mp.moe_combine(ye.contiguous(), ids.contiguous(),
+                           pos.contiguous(), gate_w.contiguous())

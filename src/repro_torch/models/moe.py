@@ -5,15 +5,23 @@ the router runs in f32; each token's k assignments get a position in
 their expert by a token-major running count; assignments past the
 capacity C are parked in slot C of the [E, C+1, d] dispatch buffer (in
 ``cfg.dtype``) and weighted by 0 when gathered back; the k expert outputs
-are summed in ``cfg.dtype``.  ``cfg.scan_impl`` picks how the three
-per-expert products over the buffer run:
-  * ``pallas`` - the hand-written CUDA grouped-matmul kernel
-                 (``kernels/csrc/gmm.cu``), E groups of C+1 rows, through
-                 ``kernels/ops.py`` ``gmm_equal`` (its plain version on a
-                 CPU tensor);
-  * otherwise  - ``torch.einsum``, as the reference computes them.
+are summed in ``cfg.dtype``.  ``cfg.scan_impl`` picks how the dispatch,
+the three per-expert products over the buffer and the combine run:
+  * ``pallas`` - hand-written CUDA kernels through ``kernels/ops.py``
+                 (their plain versions on a CPU tensor): ``moe_dispatch``
+                 (``kernels/csrc/moe_permute.cu``) writes each buffer row
+                 once, a kept row or zeros, the parking slot zeros;
+                 ``gmm_equal`` (``kernels/csrc/gmm.cu``) the products, E
+                 groups of C+1 rows; ``moe_combine`` (``moe_permute.cu``)
+                 reads back each token's kept rows and sums them;
+  * otherwise  - the reference's ops: ``index_add_dispatch`` (the tokens
+                 repeated k times and ``index_add_``-ed into a zeroed
+                 buffer, the dropped rows summed in the parking slot),
+                 ``torch.einsum``, and ``gather_combine`` (a gather,
+                 weight and sum).
 Both compute the reference's function: bf16 products summed in f32 and
-rounded once.  The routing, capacity and dropping are the same on both.
+rounded once; the parking slot's rows differ, and are weighted by 0.  The
+routing, capacity and dropping are the same on both.
 
 On a mesh (DTensor tokens under ``parallel/context.py``) the layer keeps
 the reference's global function: one capacity and one running count
@@ -163,7 +171,7 @@ def _route(cfg: ModelConfig, router: torch.Tensor, xf: torch.Tensor, C: int):
     [E, C+1, d], the assignments' experts and slots [T*k], whether each
     was kept, their gate weights [T, k], the aux loss)."""
     m = cfg.moe
-    T, d = xf.shape
+    T = xf.shape[0]
     E, k = m.num_experts, m.experts_per_token
     with tracing.span("moe.route"):
         ids_flat, pos_flat, keep, gate_w, aux = _slots(m, router, xf, C)
@@ -173,10 +181,26 @@ def _route(cfg: ModelConfig, router: torch.Tensor, xf: torch.Tensor, C: int):
     # ---- dispatch: scatter tokens into [E, C+1, d] (slot C = dropped) --
     with tracing.span("moe.dispatch"):
         dt = torch_dtype(cfg.dtype)
-        upd = xf.to(dt).repeat_interleave(k, dim=0)           # [T*k, d]
-        xe = torch.zeros((E * (C + 1), d), dtype=dt, device=xf.device)
-        xe.index_add_(0, ids_flat * (C + 1) + pos_flat, upd)
-    return xe.view(E, C + 1, d), ids_flat, pos_flat, keep, gate_w, aux
+        if cfg.scan_impl == "pallas":
+            xe = kops.moe_dispatch(xf.to(dt), ids_flat.view(T, k),
+                                   pos_flat.view(T, k), E, C)
+        else:
+            xe = index_add_dispatch(xf.to(dt), ids_flat, pos_flat, E, C)
+    return xe, ids_flat, pos_flat, keep, gate_w, aux
+
+
+def index_add_dispatch(x: torch.Tensor, ids_flat: torch.Tensor,
+                       pos_flat: torch.Tensor, num_experts: int,
+                       capacity: int) -> torch.Tensor:
+    """The ``"xla"`` dispatch of x [T, d] by its assignments' experts and
+    slots [T*k]: the rows repeated k times and ``index_add_``-ed into a
+    zeroed [E, C+1, d] buffer (the dropped ones summed in slot C)."""
+    T, d = x.shape
+    upd = x.repeat_interleave(ids_flat.numel() // T, dim=0)   # [T*k, d]
+    xe = torch.zeros((num_experts * (capacity + 1), d), dtype=x.dtype,
+                     device=x.device)
+    xe.index_add_(0, ids_flat * (capacity + 1) + pos_flat, upd)
+    return xe.view(num_experts, capacity + 1, d)
 
 
 def _slots(m, router: torch.Tensor, xf: torch.Tensor, C: int):
@@ -209,15 +233,29 @@ def _slots(m, router: torch.Tensor, xf: torch.Tensor, C: int):
     return ids_flat, pos_flat, keep, gate_w, aux
 
 
-def _combine(ye: torch.Tensor, ids_flat, pos_flat, keep, gate_w):
+def _combine(cfg: ModelConfig, ye: torch.Tensor, ids_flat, pos_flat, keep,
+             gate_w):
     """Gather each assignment's output back and sum a token's k of them,
     weighted (a dropped one by 0)."""
     T, k = gate_w.shape
     with tracing.span("moe.combine"):
-        back = ye[ids_flat, pos_flat]                         # [T*k, d]
-        back = back * (keep[:, None] * gate_w.reshape(T * k)[:, None]).to(
-            ye.dtype)
-        return back.reshape(T, k, -1).sum(dim=1)
+        if cfg.scan_impl == "pallas":
+            return kops.moe_combine(ye, ids_flat.view(T, k),
+                                    pos_flat.view(T, k), gate_w)
+        return gather_combine(ye, ids_flat, pos_flat, keep, gate_w)
+
+
+def gather_combine(ye: torch.Tensor, ids_flat: torch.Tensor,
+                   pos_flat: torch.Tensor, keep: torch.Tensor,
+                   gate_w: torch.Tensor) -> torch.Tensor:
+    """The ``"xla"`` combine: each assignment's row of ye [E, C+1, d]
+    gathered, weighted by ``keep * gate_w`` in ye's dtype and a token's k
+    of them summed -> [T, d]."""
+    T, k = gate_w.shape
+    back = ye[ids_flat, pos_flat]                             # [T*k, d]
+    back = back * (keep[:, None] * gate_w.reshape(T * k)[:, None]).to(
+        ye.dtype)
+    return back.reshape(T, k, -1).sum(dim=1)
 
 
 def _moe_tokens(cfg: ModelConfig, p: Params, xf: torch.Tensor,
@@ -228,7 +266,8 @@ def _moe_tokens(cfg: ModelConfig, p: Params, xf: torch.Tensor,
     xe, ids_flat, pos_flat, keep, gate_w, aux = _on_tokens(
         functools.partial(_route, cfg, C=C), 6, router, xf)
     ye = _experts(cfg, p, xe)                                 # [E, C+1, d]
-    out = _on_tokens(_combine, 1, ye, ids_flat, pos_flat, keep, gate_w)
+    out = _on_tokens(functools.partial(_combine, cfg), 1, ye, ids_flat,
+                     pos_flat, keep, gate_w)
     return out, aux
 
 

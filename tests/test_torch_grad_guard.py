@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gmm as tgmm
 from repro_torch.kernels import mamba_scan as tmb
+from repro_torch.kernels import moe_permute as tmp
 from repro_torch.kernels import rwkv6_scan as trw
 from repro_torch.kernels._grad import check_no_grad
 
@@ -87,7 +88,22 @@ def _gmm_equal():
     return tgmm.gmm_equal(x, w), (x, w)
 
 
-@pytest.mark.parametrize("call", [_flash, _rwkv6, _mamba, _gmm, _gmm_equal],
+_IDS = torch.tensor([[0, 1], [1, 2], [2, 0]])
+_POS = torch.tensor([[0, 0], [1, 0], [1, 2]])     # C = 2: one dropped
+
+
+def _moe_dispatch():
+    x = _leaf(3, 16, seed=1)
+    return tmp.moe_dispatch(x, _IDS, _POS, 3, 2), (x,)
+
+
+def _moe_combine():
+    ye, gate_w = _leaf(3, 3, 16, seed=1), _leaf(3, 2, seed=2)
+    return tmp.moe_combine(ye, _IDS, _POS, gate_w), (ye, gate_w)
+
+
+@pytest.mark.parametrize("call", [_flash, _rwkv6, _mamba, _gmm, _gmm_equal,
+                                  _moe_dispatch, _moe_combine],
                          ids=lambda f: f.__name__[1:])
 def test_cpu_wrappers_still_differentiate(call):
     """On a CPU tensor each wrapper runs its plain version, unguarded, so

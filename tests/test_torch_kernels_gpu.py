@@ -1,5 +1,6 @@
 """The CUDA kernels (flash attention, WKV6 scan, selective scan, grouped
-matmul) against their plain versions, on the card (flash also at the
+matmul, the MoE's dispatch and combine) against their plain versions, on
+the card (the MoE layer through them against its ``"xla"`` path) (flash also at the
 enc-dec family's non-causal shapes and through a tiny enc-dec and VLM
 prefill and decode), and each wrapper's grad guard; a tiny train step on the card against the CPU's, the
 eval step through flash while the train step refuses it; the data
@@ -10,6 +11,8 @@ Skips without a CUDA card.  On the card (no JAX needed):
 
     python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -18,8 +21,10 @@ torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gmm as tgmm
 from repro_torch.kernels import mamba_scan as tmb
+from repro_torch.kernels import moe_permute as tmp
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rwkv6_scan as trw
+from test_torch_moe_permute import _ulps
 
 
 def _inputs(seed, dtype, *shapes):
@@ -181,6 +186,8 @@ def _guarded_calls():
     """One small CUDA call of each kernel wrapper: (name, fn, args)."""
     dev = "cuda"
     bf = dict(device=dev, dtype=torch.bfloat16)
+    ids = torch.tensor([[0, 1], [1, 2], [2, 3], [3, 0]], device=dev)
+    pos = torch.tensor([[0, 0], [1, 0], [1, 0], [1, 3]], device=dev)
     return [
         ("flash_attention", tfa.flash_attention,
          [torch.randn(1, 2, 64, 64, **bf) for _ in range(3)]),
@@ -198,12 +205,18 @@ def _guarded_calls():
           torch.tensor([32, 32], dtype=torch.int32, device=dev)]),
         ("gmm_equal", tgmm.gmm_equal,
          [torch.randn(2, 32, 64, **bf), torch.randn(2, 64, 64, **bf)]),
+        ("moe_dispatch", tmp.moe_dispatch,
+         [torch.randn(4, 64, **bf), ids, pos, 4, 3]),
+        ("moe_combine", tmp.moe_combine,
+         [torch.randn(4, 4, 64, **bf), ids, pos,
+          torch.full((4, 2), 0.5, device=dev)]),
     ]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("which", range(5), ids=[
-    "flash_attention", "rwkv6_scan", "mamba_scan", "gmm", "gmm_equal"])
+@pytest.mark.parametrize("which", range(7), ids=[
+    "flash_attention", "rwkv6_scan", "mamba_scan", "gmm", "gmm_equal",
+    "moe_dispatch", "moe_combine"])
 def test_cuda_wrapper_refuses_grad_and_runs_without(which):
     """A CUDA kernel has no backward: under grad mode an input that
     requires grad is refused before any launch; under torch.no_grad() the
@@ -452,6 +465,132 @@ def test_gmm_equal_matches_einsum(G, R, K, N, dtype):
     want = torch.einsum("grk,gkn->grn", x.float(), w.float())
     tol = 1e-5 if dtype == "float32" else 4e-3
     assert _gmm_scaled_err(got, want) <= tol
+
+
+def _moe_routes(T, E, k, d, dtype, cf=1.25, seed=0):
+    """One random route of the MoE layer's own ``_slots``, skewed towards a
+    few experts so that some overflow: (x [T,d], ids, pos [T,k], gate_w
+    [T,k], C), on the card."""
+    from repro_torch.models import moe as tmoe
+
+    class M:
+        num_experts, experts_per_token, capacity_factor = E, k, cf
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(T, d, generator=gen)
+    router = torch.randn(d, E, generator=gen) * d ** -0.5
+    router[:, : max(E // 16, 1)] += 0.05
+    C = tmoe._capacity(M, T)
+    ids, pos, _, gate_w, _ = tmoe._slots(M, router, x, C)
+    return (x.to(dtype).cuda(), ids.view(T, k).cuda(), pos.view(T, k).cuda(),
+            gate_w.cuda(), C)
+
+
+def _bits(t):
+    """t's elements as integers of their width: equal bits, equal ints."""
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+# (T, E, k, d, dtype): the scoring cell's layer (C 640), decode ticks
+# (C = k), rows of 154, 4100 and 8200 bytes (2-, 4- and 8-byte vectors;
+# 77 is no multiple of 8), f32 and f16
+MOE_SHAPES = [(8192, 128, 8, 2048, torch.bfloat16),
+              (1, 128, 8, 2048, torch.bfloat16),
+              (16, 128, 8, 2048, torch.bfloat16),
+              (300, 16, 4, 77, torch.bfloat16),
+              (300, 16, 4, 2050, torch.bfloat16),
+              (300, 16, 4, 4100, torch.bfloat16),
+              (300, 16, 4, 77, torch.float32),
+              (512, 32, 8, 2048, torch.float32),
+              (256, 32, 8, 1024, torch.float16)]
+MOE_IDS = ["cell", "decode1", "decode16", "d77-bf16", "d2050", "d4100",
+           "d77-f32", "f32", "f16"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,E,k,d,dtype", MOE_SHAPES, ids=MOE_IDS)
+def test_moe_dispatch_kernel_matches_plain_bit_for_bit(T, E, k, d, dtype):
+    """A copy: every row of [E, C+1, d] equal to the plain version's in
+    every bit, kept rows and zeros alike, the parking slot zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, ids, pos, _, C = _moe_routes(T, E, k, d, dtype, seed=T + d)
+    if T <= 16:
+        assert C == k
+    launches = tmp.moe_dispatch.launches
+    got = tops.moe_dispatch(x, ids, pos, E, C)
+    torch.cuda.synchronize()
+    assert tmp.moe_dispatch.launches == launches + 1
+    want = tmp.moe_dispatch_plain(x, ids, pos, E, C)
+    assert got.shape == (E, C + 1, d) and got.dtype == dtype
+    assert torch.equal(_bits(got), _bits(want))
+    assert not bool(got[:, C].any())
+    assert 0 < int((pos < C).sum()) < T * k or T <= 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,E,k,d,dtype", MOE_SHAPES, ids=MOE_IDS)
+def test_moe_combine_kernel_matches_plain(T, E, k, d, dtype):
+    """Within one ulp of the dtype: both round each product and sum in
+    f32 in the order j = 0..k-1, so only the f32 summation order could
+    part them.  The parking slot holds garbage here: a dropped assignment
+    must add nothing, so those rows may never reach the sum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, ids, pos, gate_w, C = _moe_routes(T, E, k, d, dtype, seed=T + d + 1)
+    gen = torch.Generator(device="cuda").manual_seed(T)
+    ye = torch.randn(E, C + 1, d, generator=gen, device="cuda").to(dtype)
+    launches = tmp.moe_combine.launches
+    got = tops.moe_combine(ye, ids, pos, gate_w)
+    torch.cuda.synchronize()
+    assert tmp.moe_combine.launches == launches + 1
+    assert got.shape == (T, d) and got.dtype == dtype
+    ye[:, C] = float("nan")          # the kernel never reads these rows
+    again = tops.moe_combine(ye, ids, pos, gate_w)
+    assert torch.equal(_bits(again), _bits(got))
+    ye[:, C] = 0
+    want = tmp.moe_combine_plain(ye, ids, pos, gate_w)
+    assert _ulps(got, want) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "dbrx-132b"])
+def test_moe_layer_through_the_kernels_matches_xla(arch):
+    """``moe_apply`` under ``"pallas"`` (dispatch, gmm, combine kernels) on
+    the card against ``"xla"`` on the card, at ``tests/test_torch_moe.py``'s
+    f32 tolerance; each kernel launched once a layer call, as many as a
+    traced unit's ``moe.dispatch`` spans."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch import tracing
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import moe as tmoe
+    cfg = get_tiny_config(arch).replace(dtype="float32",
+                                        param_dtype="float32")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, chunk_tokens=32))
+    p = tmoe.moe_init(cfg, torch.Generator().manual_seed(1),
+                      torch.device("cpu"))
+    p = {n: t.cuda() for n, t in p.items()}
+    x = torch.randn(2, 48, cfg.d_model,
+                    generator=torch.Generator().manual_seed(2)).cuda()
+    want, want_aux = tmoe.moe_apply(cfg.replace(scan_impl="xla"), p, x)
+    launches = (tmp.moe_dispatch.launches, tmp.moe_combine.launches)
+    was = tracing.enabled()
+    tracing.clear()
+    tracing.enable()
+    try:
+        with torch.no_grad(), tracing.unit("u", x):
+            got, aux = tmoe.moe_apply(cfg.replace(scan_impl="pallas"), p, x)
+        t = tracing.totals()
+    finally:
+        (tracing.enable if was else tracing.disable)()
+        tracing.clear()
+    calls = 3                                   # 96 tokens in chunks of 32
+    assert (tmp.moe_dispatch.launches, tmp.moe_combine.launches) == \
+        (launches[0] + calls, launches[1] + calls)
+    assert t["spans"]["moe.dispatch"]["calls"] == calls
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-5)
 
 
 def _tiny_run(**model_kw):
