@@ -2,12 +2,14 @@
 time (its roofline bound), and a model's FLOPs a token.
 
 Frozen with the benchmark: a later change to the program cannot move
-these counts.  ``attention_bound`` and ``wkv_bound`` are the arithmetic
-the port's kernels were held to while they were written; ``gmm_bound``
+these counts.  ``attention_bound``, ``wkv_bound`` and ``mamba_bound`` are
+the arithmetic the port's kernels were held to while they were written
+(``chip_smoke.py``'s, the scan's at the H100's top clock); ``gmm_bound``
 counts the routed rows that the capacity kept, not every slot of the
 capacity buffer; ``model_flops_per_token`` counts the products a token
-needs: its active experts only, attention's visible pairs, no
-embedding lookup, recomputation not counted.
+needs: its active experts only, attention's visible pairs, a hybrid's
+layers by its layer pattern, no embedding lookup, recomputation not
+counted.
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ from typing import Dict, Optional, Tuple
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12          # HBM3, bytes a second
 MFU_PEAK = PEAK_FLOPS["bfloat16"]
+# exponentials on the special-function units: 16 a clock per SM (sm_90),
+# 132 SMs, at the top SM clock
+EXP_PER_S = 16 * 132 * 1.98e9
 
 # the port's kernels by their __global__ functions' names
 PORT_KERNELS = {
@@ -87,6 +92,20 @@ def wkv_bound(B, H, S, D) -> Tuple[float, str]:
     return _bound(flops, nbytes, "float32")
 
 
+def mamba_bound(B, S, di, N) -> Tuple[float, str]:
+    """(bound ms, what bounds it) of the selective scan: dt and x read and
+    y written (b, c and A read) in 4-byte floats, against its B S di N
+    exponentials exp(dt A) on the special-function units and its 6 f32
+    operations for each of them at peak.  The exponentials are inherent:
+    A is a learned [di, N] matrix."""
+    nbytes = 4 * (3 * B * S * di + 2 * B * S * N + di * N)
+    exps = B * S * di * N
+    t_ops = max(exps / EXP_PER_S, 6 * exps / PEAK_FLOPS["float32"])
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def gmm_bound(kept_rows: int, groups_used: int, K: int, N: int,
               dtype_name: str) -> Tuple[float, str]:
     """(bound ms, what bounds it) of one grouped product over the MoE's
@@ -108,8 +127,12 @@ def model_flops_per_token(m: Dict, seq: int) -> float:
     ``experts_per_token`` experts and not the others, attention's causal
     pairs (on average (seq + 1) / 2 keys a query), WKV6's recurrence
     (``wkv_bound``'s 5 D^2 + 5 D a head), the unembedding; the
-    embedding lookup and the elementwise work count nothing."""
+    embedding lookup and the elementwise work count nothing.  A hybrid
+    counts each layer as its pattern makes it (``hybrid_layers``)."""
     d, L, V = m["d_model"], m["num_layers"], m["vocab_size"]
+    if m.get("family") == "hybrid":
+        return sum(_hybrid_layer(m, seq, mixer, ffn)
+                   for mixer, ffn in hybrid_layers(m)) + 2 * d * V
     if m.get("rwkv"):
         r = m["rwkv"]
         H, D = d // r["head_dim"], r["head_dim"]
@@ -119,14 +142,58 @@ def model_flops_per_token(m: Dict, seq: int) -> float:
         per += H * (5 * D * D + 5 * D)                   # WKV6
         per += 2 * (2 * d * m["d_ff"] + d * d)           # channel mix
         return L * per + 2 * d * V
-    q_dim = m["num_heads"] * m["head_dim"]
-    kv_dim = m["num_kv_heads"] * m["head_dim"]
-    per = 2 * d * (q_dim + 2 * kv_dim) + 2 * q_dim * d
-    per += 4 * q_dim * (seq + 1) / 2                     # QK^T and PV
+    per = _attention(m, seq)
     moe = m.get("moe")
     if moe and moe["num_experts"] > 0:
-        per += 2 * d * moe["num_experts"]                # router
-        per += 2 * 3 * d * moe["d_ff_expert"] * moe["experts_per_token"]
+        per += _experts(m)
     else:
         per += 2 * 3 * d * m["d_ff"]
     return L * per + 2 * d * V
+
+
+def _attention(m: Dict, seq: int) -> float:
+    """Attention's projections and its causal pairs, a token."""
+    d = m["d_model"]
+    q_dim = m["num_heads"] * m["head_dim"]
+    kv_dim = m["num_kv_heads"] * m["head_dim"]
+    per = 2 * d * (q_dim + 2 * kv_dim) + 2 * q_dim * d
+    return per + 4 * q_dim * (seq + 1) / 2               # QK^T and PV
+
+
+def _experts(m: Dict) -> float:
+    """An MoE layer's router and its active experts, a token."""
+    d, moe = m["d_model"], m["moe"]
+    return 2 * d * moe["num_experts"] \
+        + 2 * 3 * d * moe["d_ff_expert"] * moe["experts_per_token"]
+
+
+def hybrid_layers(m: Dict):
+    """Each layer of a hybrid, in order: (mixer, ffn), the mixer
+    ``"attn"`` at position ``hybrid_attn_pos`` of each period of
+    ``hybrid_period`` layers and ``"mamba"`` elsewhere, the FFN ``"moe"``
+    where the position's index % ``moe_every`` is ``moe_offset`` (with
+    experts) and ``"mlp"`` elsewhere."""
+    P, moe = m["hybrid_period"], m.get("moe")
+    experts = bool(moe and moe["num_experts"] > 0)
+    for layer in range(m["num_layers"]):
+        j = layer % P
+        mixer = "attn" if j == m["hybrid_attn_pos"] else "mamba"
+        sparse = experts and j % moe.get("moe_every", 1) \
+            == moe.get("moe_offset", 0)
+        yield mixer, "moe" if sparse else "mlp"
+
+
+def _hybrid_layer(m: Dict, seq: int, mixer: str, ffn: str) -> float:
+    """One hybrid layer's FLOPs a token.  A Mamba-1 mixer: in_proj
+    2 d 2di, x_proj 2 di (R + 2N), dt_proj 2 R di, out_proj 2 di d, and
+    the scan's 6 di N (``mamba_bound``'s operations)."""
+    d = m["d_model"]
+    if mixer == "attn":
+        per = _attention(m, seq)
+    else:
+        mb = m["mamba"]
+        di, N = mb["expand"] * d, mb["d_state"]
+        R = mb.get("dt_rank") or -(-d // 16)
+        per = 2 * d * 2 * di + 2 * di * (R + 2 * N) + 2 * R * di \
+            + 2 * di * d + 6 * di * N
+    return per + (_experts(m) if ffn == "moe" else 2 * 3 * d * m["d_ff"])

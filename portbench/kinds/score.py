@@ -2,24 +2,25 @@
 
 A unit is one batch of ``batch`` x ``seq`` tokens through
 ``make_eval_step``; its answer is the batch's ce, z and aux.  Of the
-units of the check's sample it is also what the layers were handed and
-gave (the calls that ``models.model._scan_blocks`` makes): the first
-layer's input, every row of it, and the residual stream of
+units of the check's sample it is also what the blocks were handed and
+gave (the calls that ``models.model._scan_blocks`` makes; a block is a
+layer, or a hybrid's superblock of ``hybrid_period`` layers): the first
+block's input, every row of it, and the residual stream of
 ``check_rows`` of the batch's rows (drawn from the seed) at each later
-layer's input and after the last; and the final hidden state of every
+block's input and after the last; and the final hidden state of every
 row (the input of ``models.model._logits``).  The sample is
 ``check_batches`` of the first ``check_from`` units, drawn from the seed
 before the window; a sampled unit that the window did not reach runs
 after it.
 
 The check makes the sample's tokens and the weights again from the seed
-and runs the configuration's plain reference over them in f32, a layer
+and runs the configuration's plain reference over them in f32, a block
 at a time (``Prec(fp8=True)``: the control).  Besides the batch's ce, z
-and aux it runs each layer on the program's own input to that layer, so
-that each layer is held to the reference alone (``step_gap``), the
+and aux it runs each block on the program's own input to that block, so
+that each block is held to the reference alone (``step_gap``), the
 start (the embedding) with it: a random model's residual stream drifts
 from the f32 one through its depth by rounding alone, so the final
-hidden state's widest row (``hidden_gap``) is read, and the layers are
+hidden state's widest row (``hidden_gap``) is read, and the blocks are
 judged one by one.  Of the final hidden state it also reads the whole
 batch's gap and the median token's (``hidden_rms_gap``,
 ``hidden_median_gap``), which a few tokens whose routing flips between
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from portbench import flops, tokens, weights
-from portbench.harness import Marks, program_config
+from portbench.harness import BenchError, Marks, program_config
 from portbench.reference.common import Prec, no_tf32
 from portbench.tokens import Pool
 
@@ -52,52 +53,81 @@ def sample(seed: int, n: int, k: int, stream: int = 1) -> List[int]:
 
 
 def check_rows(cell) -> List[int]:
-    """The rows whose every layer is checked (none: the layers are not
-    captured, and no ``step_gap`` is read)."""
+    """The rows whose every block is checked (none: the blocks are not
+    captured, and no ``step_gap`` is read).  An MoE layer routes the
+    whole batch under one capacity, so a block run on some of its rows
+    is another function: with experts, every row or none."""
     t = cell.traffic
     if not t["check_rows"]:
         return []
+    if (cell.conf["model"].get("moe") or {}).get("num_experts", 0) > 0 \
+            and t["check_rows"] < t["batch"]:
+        raise BenchError(f"{cell.name}: with experts, check_rows is 0 or "
+                         f"at least the batch ({t['batch']})")
     return sample(cell.seed, t["batch"], t["check_rows"], stream=2)
+
+
+def blocks(ref, m: Dict) -> int:
+    """The blocks that ``models.model._scan_blocks`` steps: the family's
+    ``blocks`` where its reference defines one (a hybrid's superblocks),
+    else one a layer."""
+    return ref.blocks(m) if hasattr(ref, "blocks") else m["num_layers"]
+
+
+def run_block(ref, m: Dict, make, b: int, xs: List[torch.Tensor],
+              prec: Prec) -> List:
+    """Block b on each of ``xs``: [(h, aux or None)], ``make(g)`` making
+    weight group g: the family's ``block`` where its reference defines
+    one, else layer b from group b + 1."""
+    if hasattr(ref, "block"):
+        return ref.block(m, make, b, xs, prec)
+    p = ref.layer_of(make(b + 1), b)
+    return [ref.layer(m, p, x, prec) for x in xs]
 
 
 def reference(cell, pool: Pool, idx: List[int], prec: Prec,
               forced: Optional[Dict[str, Dict[int, List]]] = None
               ) -> Dict[int, Dict]:
-    """The reference over batches ``idx``, the weights made again a layer
-    at a time: each batch's ce, z, aux, embedding (``start``), final
+    """The reference over batches ``idx``, the weights made again a block
+    at a time (``run_block``): each batch's ce, z, aux, embedding (``start``), final
     hidden state (``hidden``, f32, before the final norm) and residual
-    stream of the check's rows at each layer's input and after the last
-    (``layers``); and, for each
-    ``forced[what][i]`` (such a list of a run's own states), each layer
-    run on that run's input to it (``forced[what]``)."""
+    stream of the check's rows at each block's input and after the last
+    (``layers``); and, for each ``forced[what][i]`` (such a list of a
+    run's own states), each block run on that run's input to it
+    (``forced[what]``)."""
     ref, m = cell.reference, cell.conf["model"]
     groups = ref.leaves(m, cell.conf["score"]["param_dtype"])
     rows = check_rows(cell)
     forced = forced or {}
     no_tf32()
-    dev = cell.device
+
+    def make(g: int) -> Dict:
+        return weights.make_group(groups, g, cell.seed, cell.device)
+
     with torch.no_grad():
-        g0 = weights.make_group(groups, 0, cell.seed, dev)
+        g0 = make(0)
         h = {i: ref.embed(g0, pool.get(i)["tokens"]) for i in idx}
         start = dict(h)
         layers = {i: [h[i][rows]] if rows else None for i in idx}
         aux = {i: 0.0 for i in idx}
         led = {w: {i: [] for i in f} for w, f in forced.items()}
-        for layer in range(m["num_layers"]):
-            p = ref.layer_of(weights.make_group(groups, layer + 1, cell.seed,
-                                                dev), layer)
-            for i in idx:
-                h[i], a = ref.layer(m, p, h[i], prec)
+        for b in range(blocks(ref, m)):
+            ins = [(w, i, states[b]) for w, f in forced.items()
+                   for i, states in f.items()
+                   if b < len(states) and states[b] is not None]
+            outs = run_block(ref, m, make, b, [h[i] for i in idx]
+                             + [x.float() for _, _, x in ins], prec)
+            for i, (hi, a) in zip(idx, outs):
+                h[i] = hi
                 if rows:
-                    layers[i].append(h[i][rows])
+                    layers[i].append(hi[rows])
                 if a is not None:
                     aux[i] += float(a)
+            ran = {(w, i): y for (w, i, _), (y, _)
+                   in zip(ins, outs[len(idx):])}
             for w, f in forced.items():
-                for i, states in f.items():
-                    x = states[layer] if layer < len(states) else None
-                    led[w][i].append(None if x is None else ref.layer(
-                        m, p, x.float(), prec)[0])
-            del p
+                for i in f:
+                    led[w][i].append(ran.get((w, i)))
         out = {}
         for i in idx:
             hi = h.pop(i)
@@ -144,11 +174,11 @@ def hidden_spread(got: Optional[torch.Tensor], want: torch.Tensor
 def step_gaps(start: Optional[torch.Tensor],
               states: Optional[List[torch.Tensor]], embed: torch.Tensor,
               forced: List[Optional[torch.Tensor]]) -> List[float]:
-    """Of one batch: the start's gap (the run's input to the first layer
+    """Of one batch: the start's gap (the run's input to the first block
     against the reference's embedding, every row, over its norm), then
-    each layer's of the check rows (the run's output against the
-    reference's layer on the run's own input, over the reference's update
-    ||layer(x) - x||)."""
+    each block's of the check rows (the run's output against the
+    reference's block on the run's own input, over the reference's update
+    ||block(x) - x||)."""
     n = len(forced)
     if states is None or len(states) != n + 1:
         return [float("inf")] * (n + 1)
@@ -189,8 +219,8 @@ def rows_over(got: Dict[int, Dict], want: Dict[int, Dict],
 
 
 class Capture:
-    """While installed, what the program's forward hands its layers and
-    its head: the residual stream of ``rows`` at each layer's input and
+    """While installed, what the program's forward hands its blocks and
+    its head: the residual stream of ``rows`` at each block's input and
     after the last (``None`` where the forward got another number of rows
     than the batch has), and the head's input."""
 

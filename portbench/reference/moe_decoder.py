@@ -12,7 +12,8 @@ the port's choices, each noted in ``PERF.md``):
   frequencies theta^(-i / (Dh/2))) at positions 0..S-1; query head h
   reads kv head h // (Hq/Hkv); causal softmax(q k^T / sqrt(Dh)) v; o Wo.
 - experts: router logits x R in f32, softmax, the top k, their weights
-  renormalised to sum 1; assignment j of token t (token-major order) takes
+  renormalised to sum 1 (kept as they are where ``moe.norm_topk_prob``
+  is false); assignment j of token t (token-major order) takes
   the next free slot of its expert, and one that finds the expert's
   C = max(floor(capacity_factor T k / E), k) slots full is dropped; a
   kept one adds weight x SwiGLU_e(x) = (silu(x Wg_e) * (x Wu_e)) Wo_e.
@@ -121,7 +122,8 @@ def _route(mo: Dict, p: Dict, x: torch.Tensor, prec: Prec):
     C = max(int(mo["capacity_factor"] * T * k / E), k)
     probs = prec.mm(x, p["moe/router"]).softmax(-1)
     top, ids = probs.topk(k, dim=-1)
-    gate = top / top.sum(-1, keepdim=True)
+    gate = top / top.sum(-1, keepdim=True) \
+        if mo.get("norm_topk_prob", True) else top
     share = F.one_hot(ids, E).float().sum(1).mean(0)
     aux = AUX * E * (probs.mean(0) * share).sum() / k
     flat = ids.reshape(-1)                                 # token-major

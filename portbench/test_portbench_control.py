@@ -10,10 +10,9 @@ from portbench import harness as H
 from portbench import testing
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in
-                                  testing.bench()["workloads"]])
+@pytest.mark.parametrize("cell", testing.tiny_cells())
 def test_the_control_fails_a_limit(cell):
-    c = H.Cell(testing.bench(), cell, 31, 0, False, "cpu",
+    c = H.Cell(testing.tiny_bench(), cell, 31, 0, False, "cpu",
                overrides=testing.tiny_overrides(cell, batch=4))
     with testing.few_threads():
         if c.kind == "score":

@@ -6,17 +6,15 @@ from __future__ import annotations
 
 import pytest
 
-from portbench import harness as H
 from portbench import testing
 
 
 def _cases():
-    for w in testing.bench()["workloads"]:
-        conf = H.load_json(H.HERE / "configs" / f"{w['config']}.json")
-        kind = H.load_json(H.HERE / "traffic" / f"{w['traffic']}.json")[
-            "kind"]
-        for fault in testing.faults(kind, conf["model"]["family"]):
-            yield w["name"], fault
+    for name in testing.tiny_cells():
+        over = testing.tiny_overrides(name)
+        family = over["conf"]["model"]["family"]
+        for fault in testing.faults(over["traffic"]["kind"], family):
+            yield name, fault
 
 
 @pytest.mark.parametrize("cell,fault", list(_cases()))

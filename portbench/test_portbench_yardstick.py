@@ -64,6 +64,45 @@ def test_model_flops_by_hand():
         5_888_163_840)
 
 
+def test_mamba_bound_by_hand():
+    # the scan of the cut Jamba2-Mini's Mamba layer: 2 x 16384 tokens,
+    # di 8192, N 16
+    ms, by = flops.mamba_bound(2, 16384, 8192, 16)
+    exps = 2 * 16384 * 8192 * 16                     # 4,294,967,296
+    nbytes = 4 * (3 * 2 * 16384 * 8192 + 2 * 2 * 16384 * 16 + 8192 * 16)
+    t_exp = exps / (16 * 132 * 1.98e9)               # 1.027 ms
+    assert by == "operations"
+    assert ms == pytest.approx(t_exp * 1e3)
+    assert t_exp > 6 * exps / 67e12 and t_exp > nbytes / 3.35e12
+    assert flops.mamba_bound(4, 2048, 16384, 16)[0] == pytest.approx(
+        0.51354, abs=1e-5)                           # chip_smoke's case
+    ms, by = flops.mamba_bound(1, 8, 8192, 1)        # one state: bytes
+    assert by == "bytes" and ms == pytest.approx(
+        4 * (3 * 8 * 8192 + 2 * 8 + 8192) / 3.35e12 * 1e3)
+
+
+def test_hybrid_model_flops_by_hand():
+    from portbench.test_portbench_configs import JAMBA2_MINI_CUT as j
+    d, di, N, R, S = 4096, 8192, 16, 256, 16384
+    attn = 2 * d * (4096 + 2 * 1024) + 2 * 4096 * d + 4 * 4096 * (S + 1) / 2
+    mamba = (2 * d * 2 * di + 2 * di * (R + 2 * N) + 2 * R * di
+             + 2 * di * d + 6 * di * N)
+    moe = 2 * d * 16 + 2 * 3 * d * 14336 * 2
+    mlp = 2 * 3 * d * 14336
+    # 2 superblocks: positions 0-7, attention at 4, experts on odd ones
+    want = 2 * (attn + 7 * mamba + 4 * moe + 4 * mlp) + 2 * d * 65536
+    assert flops.model_flops_per_token(j, S) == pytest.approx(want)
+    assert flops.model_flops_per_token(j, S) == pytest.approx(
+        12_384_223_232)
+    assert list(flops.hybrid_layers(j))[:8] == [
+        ("mamba", "mlp"), ("mamba", "moe"), ("mamba", "mlp"),
+        ("mamba", "moe"), ("attn", "mlp"), ("mamba", "moe"),
+        ("mamba", "mlp"), ("mamba", "moe")]
+    dense = dict(j, moe={"num_experts": 0})          # no experts: MLPs
+    assert flops.model_flops_per_token(dense, S) == pytest.approx(
+        2 * (attn + 7 * mamba + 8 * mlp) + 2 * d * 65536)
+
+
 @pytest.mark.parametrize("name,want", [
     ("(anonymous namespace)::gmm_wgmma_kernel(CUtensorMap_st, int)", "gmm"),
     ("void (anonymous namespace)::wkv6_chunk<64>(float const*)",
