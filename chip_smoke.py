@@ -26,8 +26,13 @@ Phases, each of which raises on failure (exit code != 0):
                the MoE's dispatch and combine at qwen3-moe's scoring layer
                and at decode ticks (T 1 and 16, C = k): the dispatch equal
                to its plain version bit for bit, the combine within one
-               ulp; then each kernel wrapper must raise on an input that
-               requires grad under grad mode;
+               ulp; every kernel also at the jamba2-mini.score cell's
+               shapes (flash 32/8 heads at 2 x 16,384, the scan at 2 x
+               16,384 x 8192, gmm at 16 groups of 5121 rows, 4096 ->
+               14,336 and back, in bf16, dispatch and combine at 32,768
+               tokens, top-2 of 16, d 4096, C 5120); then each kernel
+               wrapper must raise on an input that requires grad under
+               grad mode;
   4. serve   - full-width qwen3-8b (bf16, seeded random weights) behind
                ServeEngine: 8 requests, 4 slots; checks the flash kernel's
                launch count (all on the wgmma route), finite logits, and
@@ -98,6 +103,15 @@ Phases, each of which raises on failure (exit code != 0):
                1e-4 of the logits' scale, every routing difference between
                the two printed by layer and token, and prefill + decode
                against forward;
+ 12b. jamba2-mini - the jamba2-mini.score cell's unit at full width
+               (its configuration file: 16 layers with 16 experts top-2 on
+               odd positions, norm_topk_prob false, bf16, seed 0) over its
+               traffic's 2 x 16,384 seeded tokens through make_eval_step
+               on the kernels: 14 scan, 2 flash, 24 gmm (both all wgmma)
+               and 8 each of dispatch and combine launches, counted from
+               just before the step; each router call's gate weights the
+               softmax's top 2 as they are (sums below 1); finite ce and
+               loss; peak memory printed;
  13. train   - full-width, full-depth qwen3-4b (36 layers, 4.4 B f32
                params, bf16 activations, seed 0) through make_train_step:
                4 steps of 2 x 2048 tokens in 2 microbatches, remat "full",
@@ -290,6 +304,11 @@ JAMBA_F32_LAYERS = 8       # 1 superblock in f32: ~36 GB
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_BATCH = 4              # 4 x 2048 scoring tokens (61.1 GB of weights)
 MOE_F32_LAYERS = 4         # 3.1 B params, 12.5 GB in f32
+# the jamba2-mini.score cell's configuration and traffic: 16 layers at
+# full width (26.05 B params, 52.1 GB in bf16), 2 x 16,384 tokens a unit
+JAMBA2_CONF = os.path.join("portbench", "configs", "jamba2-mini.json")
+JAMBA2_TRAFFIC = os.path.join("portbench", "traffic", "score_b2_s16384.json")
+JAMBA2_MOE = dict(experts=16, k=2, d=4096, zipf=0.0, norm_topk_prob=False)
 TRAIN_ARCH = "qwen3-4b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 2, 2048, 2
 TRAIN_STEPS = 4
@@ -444,6 +463,12 @@ def kernel_cases(torch, fa):
     # the tiny configs' head dim, on the mma.sync route
     cases.append(dict(B=2, Hq=4, Hkv=2, Sq=300, Skv=300, D=16, causal=True,
                       q_offset=0, dtype="bfloat16"))
+    # jamba2-mini.score's attention layer (NoPE): 32 query heads, 8 kv
+    # heads, 2 x 16,384 tokens; the plain version in 1024-row blocks (the
+    # same function in 1/64 of the launches) and no SDPA yardstick
+    cases.append(dict(B=2, Hq=32, Hkv=8, Sq=16384, Skv=16384, D=128,
+                      causal=True, q_offset=0, dtype="bfloat16",
+                      plain_block=1024, yardstick=False))
     # seamless-m4t-medium (16/16 heads, D = 64), none causal: the encoder,
     # cross-attention in prefill, ragged, and in a decode step (one query
     # row against the cached frames) in bf16 and f32
@@ -469,14 +494,16 @@ def kernel_cases(torch, fa):
         q = rnd(c["Sq"], c["Hq"])
         k, v = rnd(c["Skv"], c["Hkv"]), rnd(c["Skv"], c["Hkv"])
         kw = dict(causal=c["causal"], q_offset=c["q_offset"])
+        pb = c.get("plain_block", 128)
+        plain_kw = dict(kw, block_q=pb, block_k=pb)
         kernel = fa.route(dt, c["D"])
         by_route = fa.flash_attention.route_launches[kernel]
         out = fa.flash_attention(q, k, v, **kw)
         if fa.flash_attention.route_launches[kernel] != by_route + 1:
             raise AssertionError(f"{c} did not launch the {kernel} kernel")
-        want = fa.flash_attention_plain(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **plain_kw)
         want32 = fa.flash_attention_plain(q.float(), k.float(), v.float(),
-                                          **kw)
+                                          **plain_kw)
         torch.cuda.synchronize()
         diff = (out.float() - want.float()).abs()
         max_err = float(diff.max())
@@ -504,18 +531,19 @@ def kernel_cases(torch, fa):
             return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                   enable_gqa=True)
 
-        same_causal = c["causal"] and c["q_offset"] == 0 and \
-            c["Sq"] == c["Skv"]
+        yardstick = c.get("yardstick", True)
+        same_causal = yardstick and c["causal"] and c["q_offset"] == 0 \
+            and c["Sq"] == c["Skv"]
         err32 = lambda o: float((o.float() - want32).abs().max())
         kernel_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw),
                             iters=20)
         prior_ms = (cuda_ms(torch, lambda: fa._launch(
             q, k, v, c["causal"], c["q_offset"], "mma_sync"), iters=20)
                     if kernel == "wgmma" else None)
-        plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v,
-                                                                   **kw),
-                           iters=3, warmup=1)
-        library_ms = cuda_ms(torch, library, iters=20)
+        plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, **plain_kw), iters=3, warmup=1)
+        library_ms = (cuda_ms(torch, library, iters=20) if yardstick
+                      else None)
         bound_ms, bound_by = attention_bound(
             c["B"], c["Hq"], c["Hkv"], c["Sq"], c["Skv"], c["D"], c["causal"],
             c["q_offset"], c["dtype"])
@@ -523,9 +551,10 @@ def kernel_cases(torch, fa):
                  max_err_vs_f32=err32(out), rms_rel_err_vs_f32=rms_err,
                  rms_tol=RMS_TOL[c["dtype"]], kernel_ms=kernel_ms,
                  prior_ms=prior_ms, plain_ms=plain_ms, library_ms=library_ms,
-                 library_max_err=float((library().float() - want.float())
-                                       .abs().max()),
-                 library_max_err_vs_f32=err32(library()),
+                 library_max_err=(float((library().float() - want.float())
+                                        .abs().max()) if yardstick else None),
+                 library_max_err_vs_f32=(err32(library()) if yardstick
+                                         else None),
                  library_causal_ms=(cuda_ms(torch, library_causal, iters=20)
                                     if same_causal else None),
                  library_causal_max_err_vs_f32=(err32(library_causal())
@@ -540,7 +569,8 @@ def kernel_cases(torch, fa):
             print(f"  {r['B']} {r['Hq']}/{r['Hkv']} {r['Sq']:5d} "
                   f"{r['Skv']:5d} {r['route']:8s}"
                   f" {r['kernel_ms']:.4f} {r['prior_ms'] or 0:.4f} "
-                  f"{r['library_ms']:.4f} {r['library_causal_ms'] or 0:.4f} "
+                  f"{r['library_ms'] or 0:.4f} "
+                  f"{r['library_causal_ms'] or 0:.4f} "
                   f"{r['bound_ms']:.4f}", flush=True)
     return results
 
@@ -1314,7 +1344,9 @@ def mamba_cases(torch, mb, clock_hz):
              dict(B=1, S=2048, di=16384, N=16, dt=1e-3),   # weak decay
              # weak decay over serving's longest prompt (MAX_LEN)
              dict(B=1, S=MAX_LEN, di=16384, N=16, dt=1e-3),
-             dict(B=1, S=MAX_LEN, di=16384, N=16, dt=1e-2)]
+             dict(B=1, S=MAX_LEN, di=16384, N=16, dt=1e-2),
+             # jamba2-mini.score's scan: 2 x 16,384 tokens, d_inner 8192
+             dict(B=2, S=16384, di=8192, N=16, dt=None)]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     results = []
@@ -1590,11 +1622,17 @@ def gmm_cases(torch, gm):
     cases.append(dict(case="1000 groups",
                       sizes=[(g * 5) % 11 for g in range(1000)], K=72, N=64,
                       equal=False))
+    # jamba2-mini.score's experts: 16 groups of C + 1 = 5121 rows (2 x
+    # 16,384 tokens, top-2, capacity 1.25), d 4096, d_ff 14,336; bf16, as
+    # the cell runs them (f32 at this size would only add minutes)
+    for K, N, what in ((4096, 14336, "gate/up"), (14336, 4096, "down")):
+        cases.append(dict(case=f"jamba2 {what}", sizes=[5121] * 16, K=K,
+                          N=N, equal=True, dtypes=("bfloat16",)))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     results = []
     for c in cases:
-        for dtype in ("bfloat16", "float32"):
+        for dtype in c.get("dtypes", ("bfloat16", "float32")):
             dt = getattr(torch, dtype)
             sizes, K, N = c["sizes"], c["K"], c["N"]
             G = len(sizes)
@@ -1685,12 +1723,14 @@ def moe_cases(torch, mp):
     """The MoE dispatch and combine kernels against their plain versions
     on the card, bf16, routed by the layer's ``_slots`` with
     ``probe_moe_permute``'s Zipf prior: at qwen3-moe's scoring layer
-    (8192 tokens, top-8 of 128 experts, C 640, d 2048) and at decode
-    ticks (1 and 16 tokens, C = k).  The dispatch must equal its plain
-    version bit for bit (a copy); the combine is held within one bf16 ulp
-    of its plain version, since both round each weighted row to bf16 and
-    sum the k of them in f32 in the same order, and only the f32 adds'
-    contraction could part them.  A random buffer is combined, its
+    (8192 tokens, top-8 of 128 experts, C 640, d 2048), at decode ticks
+    (1 and 16 tokens, C = k), and with no prior at jamba2-mini.score's
+    layer (32,768 tokens, top-2 of 16 experts kept as the softmax gives
+    them, C 5120, d 4096: ~80% of the slots filled).  The dispatch must
+    equal its plain version bit for bit (a copy); the combine is held
+    within one bf16 ulp of its plain version, since both round each
+    weighted row to bf16 and sum the k of them in f32 in the same order,
+    and only the f32 adds' contraction could part them.  A random buffer is combined, its
     parking slot NaN, which no kept row reads.  Each wrapper must count
     one launch a call.  Times kernel and plain version by CUDA events,
     beside the bound (bytes at 3.35 TB/s)."""
@@ -1698,9 +1738,12 @@ def moe_cases(torch, mp):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     results = []
-    for T in (pp.T, 16, 1):
-        x, ids, pos, gate_w, C = pp.routes(SEED, T)
-        E, d = pp.E, pp.D
+    qwen = dict(experts=pp.E, k=pp.K, d=pp.D)
+    for case, T, shape in (("cell", pp.T, qwen), ("decode 16", 16, qwen),
+                           ("decode 1", 1, qwen),
+                           ("jamba2-mini", 2 * 16384, JAMBA2_MOE)):
+        x, ids, pos, gate_w, C = pp.routes(SEED, T, **shape)
+        E, d = shape["experts"], shape["d"]
         kept = int((pos < C).sum())
         n0 = (mp.moe_dispatch.launches, mp.moe_combine.launches)
         xe = mp.moe_dispatch(x, ids, pos, E, C)
@@ -1725,9 +1768,9 @@ def moe_cases(torch, mp):
                                  f"{dispatch_equal}, parking slot zeros "
                                  f"{not bool(xe[:, C].any())}, combine "
                                  f"{combine_ulps} ulps")
-        bound = pp.bounds_ms(T, C, kept)
-        res = dict(case="cell" if T == pp.T else f"decode {T}", T=T, E=E,
-                   k=pp.K, C=C, d=d, kept=kept, dispatch_equal=True,
+        bound = pp.bounds_ms(T, C, kept, experts=E, d=d)
+        res = dict(case=case, T=T, E=E, k=shape["k"], C=C, d=d, kept=kept,
+                   dispatch_equal=True,
                    combine_ulps=combine_ulps,
                    dispatch_ms=cuda_ms(torch, lambda: mp.moe_dispatch(
                        x, ids, pos, E, C), iters=20),
@@ -1985,6 +2028,97 @@ def moe_f32(torch, card: str, cfg):
                f32_max_abs_logit=scale,
                decode_vs_forward_f32_scaled_err=decode_err)
     print("f32 " + json.dumps(res), flush=True)
+    return res
+
+
+def jamba2_unit(torch, card: str):
+    """jamba2-mini.score's unit at full width: the cell's configuration
+    (16 layers, 2 superblocks: 14 Mamba and 2 attention mixers, 8 MoE
+    and 8 MLP FFNs; bf16, seed 0) over its traffic's 2 x 16,384 seeded
+    tokens, through the port's scoring path (``make_eval_step``) on the
+    kernels.  The launch counts are reset just before one eval step and
+    must be 14 scans, 2 flash and 24 gmm (both on wgmma) and 8 each of
+    the MoE dispatch and combine; every router call must give the
+    softmax's top 2 as they are (``norm_topk_prob`` false: their sums
+    below 1, equal to a plain f32 top-k within 1e-6); the ce and loss
+    finite."""
+    from portbench import harness as H
+    from repro_torch.config import PREFILL, RunConfig, ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gmm as gm
+    from repro_torch.kernels import mamba_scan as mb
+    from repro_torch.kernels import moe_permute as mp
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.train.step import make_eval_step
+
+    cfg = H.program_config(H.load_json(H.ROOT / JAMBA2_CONF), "score")
+    traffic = H.load_json(H.ROOT / JAMBA2_TRAFFIC)
+    B, S, L = traffic["batch"], traffic["seq"], cfg.num_layers
+    nb = L // cfg.hybrid_period
+    n_moe = len(range(cfg.moe.moe_offset, L, cfg.moe.moe_every))
+    want = {"scan": L - nb, "flash": nb, "gmm": 3 * n_moe,
+            "dispatch": n_moe, "combine": n_moe}
+    if cfg.moe.norm_topk_prob:
+        raise AssertionError(f"{JAMBA2_CONF}: norm_topk_prob is true")
+    params = seeded_params(torch, cfg)
+    batch = scoring_batch(torch, cfg, B, S)
+    eval_step = make_eval_step(RunConfig(model=cfg, shape=ShapeConfig(
+        "jamba2-mini.score", PREFILL, S, B)))
+    eval_step(params, batch)                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    gates, real = [], moe_mod._slots
+
+    def recording(m, router, xf, C):
+        out = real(m, router, xf, C)
+        top = torch.topk(torch.softmax(xf.float() @ router.float(), -1),
+                         m.experts_per_token, dim=-1)[0]
+        gates.append((float((out[3] - top).abs().max()),
+                      float(out[3].sum(-1).max())))
+        return out
+
+    mb.mamba_scan.launches = 0
+    gm.gmm.launches = 0
+    gm.gmm.route_launches = dict.fromkeys(gm.ROUTES, 0)
+    reset_flash(fa)
+    reset_moe(mp)
+    moe_mod._slots = recording
+    try:
+        t = time.perf_counter()
+        metrics = eval_step(params, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        moe_mod._slots = real
+    got = {"scan": mb.mamba_scan.launches,
+           "flash": fa.flash_attention.launches, "gmm": gm.gmm.launches}
+    got["dispatch"], got["combine"] = moe_launches(mp)
+    if got != want or gm.gmm.route_launches["wgmma"] != want["gmm"]:
+        raise AssertionError(f"one eval step launched {got}, want {want}, "
+                             f"gmm by route {gm.gmm.route_launches}, want "
+                             f"all wgmma")
+    flash_by_route = flash_on_route(fa, nb, "jamba2-mini eval step")
+    if len(gates) != n_moe or max(g[0] for g in gates) > 1e-6 or \
+            not max(g[1] for g in gates) < 1.0:
+        raise AssertionError(f"the router did not keep the softmax's top "
+                             f"{cfg.moe.experts_per_token} as they are: "
+                             f"{gates}")
+    ce, loss = float(metrics["ce"]), float(metrics["loss"])
+    if not (math.isfinite(ce) and math.isfinite(loss)):
+        raise AssertionError(f"non-finite ce {ce} or loss {loss}")
+    res = dict(card=card, arch=cfg.name, layers=L, params=n_params(params),
+               batch=B, seq=S, eval_step_ms=step_ms,
+               tokens_per_s=B * S / step_ms * 1e3, ce=ce, loss=loss,
+               launches=got, gmm_launches_by_route=dict(
+                   gm.gmm.route_launches), flash_launches_by_route=(
+                   flash_by_route),
+               router_top_k_max_err=max(g[0] for g in gates),
+               router_max_gate_sum=max(g[1] for g in gates),
+               max_memory_allocated_gb=(torch.cuda.max_memory_allocated()
+                                        / 1e9))
+    print("jamba2 " + json.dumps(res), flush=True)
+    del params, batch
     return res
 
 
@@ -4753,6 +4887,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 12b. jamba2-mini.score's unit at full width: the hybrid with its
+    # experts, the router keeping the softmax's top 2, one eval step
+    phase("jamba2-mini")
+    with torch.inference_mode():
+        j2 = jamba2_unit(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 13.-14. qwen3-4b training at full width and depth on the plain
     # paths, its eval step through the flash kernel; then one train step at
     # 2 layers on the card against the same step on the host's CPU
@@ -4858,6 +5000,7 @@ def main() -> int:
             for r in shres["rounds"][3]["ranks"]],
         "sharded_jamba_loss_launches_per_rank": [
             r["g"]["launches"]["flash"] for r in shres["rounds"][5]["ranks"]],
+        "jamba2_eval_launches": j2["launches"]["flash"],
         "sharded_cases": shres["kernel_cases"]["flash"],
     }, {
         "name": "rwkv6_scan",
@@ -4885,6 +5028,7 @@ def main() -> int:
         "tpu_kernel": "kernels/mamba_scan.py:_mamba_kernel",
         "launches": jfwd["scan_launches"],
         "serve_launches": jserve["scan_launches"],
+        "jamba2_eval_launches": j2["launches"]["scan"],
         "sharded_loss_launches_per_rank": [
             r["g"]["launches"]["scan"] for r in shres["rounds"][5]["ranks"]],
         "sharded_prefill_launches_per_rank": [
@@ -4917,6 +5061,7 @@ def main() -> int:
         "bound_by": gbig["bound_by"],
         "library_ms": gbig["library_ms"],
         "ep_launches_per_rank": epres["gmm_launches"],
+        "jamba2_eval_launches": j2["launches"]["gmm"],
         "ep_cases": epres["gmm_cases"],
         "sharded_loss_launches_per_rank": [
             r["c_bfloat16"]["launches"]["gmm"]
@@ -4932,6 +5077,8 @@ def main() -> int:
                      "combine": qfwd["moe_combine_launches"]},
         "serve_launches": {"dispatch": qserve["moe_dispatch_launches"],
                            "combine": qserve["moe_combine_launches"]},
+        "jamba2_eval_launches": {"dispatch": j2["launches"]["dispatch"],
+                                 "combine": j2["launches"]["combine"]},
         "sharded_loss_launches_per_rank": [
             r["c_bfloat16"]["launches"]["moe"]
             for r in shres["rounds"][1]["ranks"]],

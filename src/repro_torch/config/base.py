@@ -63,6 +63,10 @@ class MoeConfig:
     # token chunking: bounds the [E, C, d] dispatch buffers for 1M-token
     # batches (32k prefill) to a fixed working set (0 = no chunking)
     chunk_tokens: int = 65536
+    # renormalise the top-k gate weights to sum 1 (Qwen3-MoE, the
+    # reference's router); false keeps the softmax's top-k as they are
+    # (Jamba).  The port's own field: the reference has no such switch.
+    norm_topk_prob: bool = True
 
 
 @dataclass(frozen=True)

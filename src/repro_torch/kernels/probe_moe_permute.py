@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import json
 import re
+import types
 
 import torch
 
@@ -37,31 +38,34 @@ ZIPF = 0.85          # the prior's exponent: ~38% of the assignments kept
 HBM_BYTES_PER_S = 3.35e12
 
 
-class _Moe:
-    num_experts, experts_per_token, capacity_factor = E, K, CAPACITY_FACTOR
-
-
-def routes(seed: int = 0, tokens: int = T):
-    """(x [tokens,D] bf16, ids, pos [tokens,K], gate_w [tokens,K], C) on
-    the card (C = K at a decode tick's few tokens)."""
+def routes(seed: int = 0, tokens: int = T, *, experts: int = E, k: int = K,
+           d: int = D, zipf: float = ZIPF, norm_topk_prob: bool = True):
+    """(x [tokens,d] bf16, ids, pos [tokens,k], gate_w [tokens,k], C) on
+    the card (C = k at a decode tick's few tokens).  By default qwen3-moe's
+    layer; jamba2-mini's is ``experts=16, k=2, d=4096, zipf=0`` (no prior:
+    about 80% of its slots filled) with ``norm_topk_prob=False``."""
+    m = types.SimpleNamespace(num_experts=experts, experts_per_token=k,
+                              capacity_factor=CAPACITY_FACTOR,
+                              norm_topk_prob=norm_topk_prob)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn(tokens, D, generator=gen, device="cuda")
-    router = torch.randn(D, E, generator=gen, device="cuda") * D ** -0.5
+    x = torch.randn(tokens, d, generator=gen, device="cuda")
+    router = torch.randn(d, experts, generator=gen, device="cuda") * d ** -0.5
     x[:, 0] = 1.0
-    router[0] = -ZIPF * torch.log(torch.arange(1, E + 1, device="cuda",
+    router[0] = -zipf * torch.log(torch.arange(1, experts + 1, device="cuda",
                                                dtype=torch.float32))
-    C = tmoe._capacity(_Moe, tokens)
-    ids, pos, _, gate_w, _ = tmoe._slots(_Moe, router, x, C)
-    return (x.bfloat16(), ids.view(tokens, K), pos.view(tokens, K), gate_w,
+    C = tmoe._capacity(m, tokens)
+    ids, pos, _, gate_w, _ = tmoe._slots(m, router, x, C)
+    return (x.bfloat16(), ids.view(tokens, k), pos.view(tokens, k), gate_w,
             C)
 
 
-def bounds_ms(tokens: int, C: int, kept: int, itemsize: int = 2):
+def bounds_ms(tokens: int, C: int, kept: int, itemsize: int = 2, *,
+              experts: int = E, d: int = D):
     """(dispatch, combine) bound ms, bytes at 3.35 TB/s: the buffer
-    [E, C+1, D] written once and the kept rows read; the kept rows read
-    and [tokens, D] written."""
-    row = itemsize * D
-    return ((E * (C + 1) + kept) * row / HBM_BYTES_PER_S * 1e3,
+    [experts, C+1, d] written once and the kept rows read; the kept rows
+    read and [tokens, d] written."""
+    row = itemsize * d
+    return ((experts * (C + 1) + kept) * row / HBM_BYTES_PER_S * 1e3,
             (kept + tokens) * row / HBM_BYTES_PER_S * 1e3)
 
 

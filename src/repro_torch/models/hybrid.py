@@ -23,6 +23,11 @@ FFNs on each rank's experts (``moe._experts``), the Mamba layers on each
 rank's ``inner`` channels; the ``ln_mix``/``ln_ffn`` rows are indexed
 where they lie; a superblock's Mamba states are stacked per rank
 (``layers.stack_layers``) and written back per rank in decode.
+
+Spans (``repro_torch.tracing``): each position's mixer, with its norm
+and residual add, in ``attention`` or ``mamba`` (the Mamba layer's own
+children in ``models/mamba.py``), its FFN in ``ffn`` (an MoE's
+``moe.*`` spans inside it).
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.config.base import ModelConfig
 from repro_torch.models.attention import (
     attention_apply, attention_axes, attention_decode, attention_init,
@@ -112,30 +118,40 @@ def _layers(cfg: ModelConfig, p: Params):
             il += 1
 
 
+def _mixer_span(mixer: str):
+    """The span of a position's mixer, its norm and residual add."""
+    return tracing.span("attention" if mixer == "attn" else "mamba")
+
+
 def _ffn(cfg: ModelConfig, p: Params, h: torch.Tensor, i: int,
          ffn: str, fp: Params) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """h + FFN(norm(h)) at position i -> (h, aux loss or None for an MLP)."""
-    x = rmsnorm(h, p["ln_ffn"][i], cfg.rms_eps)
-    if ffn == "moe":
-        y, aux = moe_apply(cfg, fp, x)
-        return h + _residual(y), aux
-    return h + _residual(mlp_apply(cfg, fp, x)), None
+    """h + FFN(norm(h)) at position i -> (h, aux loss or None for an MLP),
+    in the span ``ffn``."""
+    with tracing.span("ffn"):
+        x = rmsnorm(h, p["ln_ffn"][i], cfg.rms_eps)
+        if ffn == "moe":
+            y, aux = moe_apply(cfg, fp, x)
+            return h + _residual(y), aux
+        return h + _residual(mlp_apply(cfg, fp, x)), None
 
 
 def superblock_apply(cfg: ModelConfig, p: Params, h: torch.Tensor,
                      positions: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward through one superblock -> (h, aux_loss)."""
+    """Full-sequence forward through one superblock -> (h, aux_loss).  Each
+    position's mixer runs in the span ``attention`` or ``mamba``, its FFN
+    in ``ffn``."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     im = 0
     for i, mixer, ffn, fp in _layers(cfg, p):
-        x = rmsnorm(h, p["ln_mix"][i], cfg.rms_eps)
-        if mixer == "attn":
-            y = attention_apply(cfg, p["attn"], x, positions, causal=True)
-        else:
-            y = mamba_apply(cfg, p["mamba"][im], x)
-            im += 1
-        h = h + _residual(y)
+        with _mixer_span(mixer):
+            x = rmsnorm(h, p["ln_mix"][i], cfg.rms_eps)
+            if mixer == "attn":
+                y = attention_apply(cfg, p["attn"], x, positions, causal=True)
+            else:
+                y = mamba_apply(cfg, p["mamba"][im], x)
+                im += 1
+            h = h + _residual(y)
         h, a = _ffn(cfg, p, h, i, ffn, fp)
         if a is not None:
             aux = aux + a
@@ -155,15 +171,17 @@ def superblock_prefill(cfg: ModelConfig, p: Params, h: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     im = 0
     for i, mixer, ffn, fp in _layers(cfg, p):
-        x = rmsnorm(h, p["ln_mix"][i], cfg.rms_eps)
-        if mixer == "attn":
-            y, kv = attention_prefill(cfg, p["attn"], x, positions)
-            cache.update(kv)
-        else:
-            y, st = mamba_apply(cfg, p["mamba"][im], x, return_state=True)
-            states.append(st)
-            im += 1
-        h = h + _residual(y)
+        with _mixer_span(mixer):
+            x = rmsnorm(h, p["ln_mix"][i], cfg.rms_eps)
+            if mixer == "attn":
+                y, kv = attention_prefill(cfg, p["attn"], x, positions)
+                cache.update(kv)
+            else:
+                y, st = mamba_apply(cfg, p["mamba"][im], x,
+                                    return_state=True)
+                states.append(st)
+                im += 1
+            h = h + _residual(y)
         h, a = _ffn(cfg, p, h, i, ffn, fp)
         if a is not None:
             aux = aux + a
@@ -180,17 +198,18 @@ def superblock_decode(cfg: ModelConfig, p: Params, h: torch.Tensor,
     [n_mamba, B, di, N]; all four are updated in place."""
     im = 0
     for i, mixer, ffn, fp in _layers(cfg, p):
-        x = rmsnorm(h, p["ln_mix"][i], cfg.rms_eps)
-        if mixer == "attn":
-            y, _, _ = attention_decode(cfg, p["attn"], x, positions,
-                                       cache["k"], cache["v"], index)
-        else:
-            st = {"conv": cache["conv"][im], "ssm": cache["ssm"][im]}
-            y, new = mamba_decode(cfg, p["mamba"][im], x, st)
-            for name, t in new.items():
-                assign_(st[name], t)
-            im += 1
-        h = h + _residual(y)
+        with _mixer_span(mixer):
+            x = rmsnorm(h, p["ln_mix"][i], cfg.rms_eps)
+            if mixer == "attn":
+                y, _, _ = attention_decode(cfg, p["attn"], x, positions,
+                                           cache["k"], cache["v"], index)
+            else:
+                st = {"conv": cache["conv"][im], "ssm": cache["ssm"][im]}
+                y, new = mamba_decode(cfg, p["mamba"][im], x, st)
+                for name, t in new.items():
+                    assign_(st[name], t)
+                im += 1
+            h = h + _residual(y)
         h, _ = _ffn(cfg, p, h, i, ffn, fp)
     return h
 

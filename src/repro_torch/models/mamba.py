@@ -48,6 +48,7 @@ from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tracing
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import op_analysis
@@ -363,18 +364,25 @@ def _scan(impl: str, return_state: bool, dt, A, b, c, xf):
 def mamba_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 return_state: bool = False):
     """Full-sequence forward.  x: [B,S,d] -> [B,S,d], or with
-    ``return_state`` (out, {"conv": [B,K-1,di], "ssm": [B,di,N] f32})."""
+    ``return_state`` (out, {"conv": [B,K-1,di], "ssm": [B,di,N] f32}).
+    Spans: ``mamba.conv`` (the causal conv and SiLU), ``mamba.ssm_inputs``
+    (``x_proj``, the dt/B/C norms, ``dt_proj``, softplus), ``mamba.scan``
+    (the kernel or the token loop); the in and out projections and the
+    gate are the enclosing span's own time."""
     dt_ = torch_dtype(cfg.dtype)
     xz = matmul(x, use(p["in_proj"], dt_, None, "inner"))
     xi, z = _halves(xz)
-    xc, conv_tail = _conv(p, xi, dt_)
-    dt, b, c = _ssm_inputs(cfg, p, xc)
+    with tracing.span("mamba.conv"):
+        xc, conv_tail = _conv(p, xi, dt_)
+    with tracing.span("mamba.ssm_inputs"):
+        dt, b, c = _ssm_inputs(cfg, p, xc)
     A = -torch.exp(use(p["A_log"], torch.float32, "inner", None))   # [di, N]
     xf = xc.float()
     scan = functools.partial(_scan, cfg.scan_impl, return_state)
-    out = per_rank(scan, (dt, A, b, c, xf),
-                   lambda pl: (pl, state_placements(pl)) if return_state
-                   else pl)
+    with tracing.span("mamba.scan"):
+        out = per_rank(scan, (dt, A, b, c, xf),
+                       lambda pl: (pl, state_placements(pl)) if return_state
+                       else pl)
     y, h = out if return_state else (out, None)
     y = y + xf * use(p["D"], torch.float32, "inner")
     out = y.to(dt_) * F.silu(z)
@@ -402,17 +410,21 @@ def mamba_cache_init(cfg: ModelConfig, batch: int,
 def mamba_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
                  cache: Dict[str, torch.Tensor],
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: [B,1,d] -> ([B,1,d], new cache).  ``cache`` is only read."""
+    """x: [B,1,d] -> ([B,1,d], new cache).  ``cache`` is only read.  The
+    spans of ``mamba_apply``."""
     dt_ = torch_dtype(cfg.dtype)
     xz = matmul(x, use(p["in_proj"], dt_, None, "inner"))
     xi, z = _halves(xz)                                # [B,1,di]
-    xc, conv = _conv(p, xi, dt_, cache["conv"])        # [B,1,di]
-    dt, b, c = _ssm_inputs(cfg, p, xc)                 # [B,1,*]
+    with tracing.span("mamba.conv"):
+        xc, conv = _conv(p, xi, dt_, cache["conv"])    # [B,1,di]
+    with tracing.span("mamba.ssm_inputs"):
+        dt, b, c = _ssm_inputs(cfg, p, xc)             # [B,1,*]
     A = -torch.exp(use(p["A_log"], torch.float32, "inner", None))
     xf = xc.float()
-    y, h = per_rank(lambda dt, A, b, c, x, h0: _scan_chunk(A, dt, b, c, x, h0),
-                    (dt, A, b, c, xf, cache["ssm"]),
-                    lambda pl: (pl, state_placements(pl)))
+    step = lambda dt, A, b, c, x, h0: _scan_chunk(A, dt, b, c, x, h0)
+    with tracing.span("mamba.scan"):
+        y, h = per_rank(step, (dt, A, b, c, xf, cache["ssm"]),
+                        lambda pl: (pl, state_placements(pl)))
     y = y + xf * use(p["D"], torch.float32, "inner")
     out = y.to(dt_) * F.silu(z)
     out = matmul(out, use(p["out_proj"], dt_, "inner", None))

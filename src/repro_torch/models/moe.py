@@ -1,7 +1,9 @@
 """Mixture-of-Experts layer: top-k router + capacity-bounded scatter dispatch.
 
 Counterpart of ``repro/models/moe.py``, step for step and dtype for dtype:
-the router runs in f32; each token's k assignments get a position in
+the router runs in f32 (its top-k weights renormalised unless
+``moe.norm_topk_prob`` is false, a switch the reference lacks, which
+Jamba's router needs); each token's k assignments get a position in
 their expert by a token-major running count; assignments past the
 capacity C are parked in slot C of the [E, C+1, d] dispatch buffer (in
 ``cfg.dtype``) and weighted by 0 when gathered back; the k expert outputs
@@ -205,13 +207,17 @@ def index_add_dispatch(x: torch.Tensor, ids_flat: torch.Tensor,
 
 def _slots(m, router: torch.Tensor, xf: torch.Tensor, C: int):
     """Router, top-k, aux loss and each assignment's slot in its expert:
-    (experts and slots [T*k], kept [T*k], gate weights [T, k], aux)."""
+    (experts and slots [T*k], kept [T*k], gate weights [T, k], aux).  The
+    gate weights are the softmax's top k, renormalised to sum 1 where
+    ``m.norm_topk_prob`` (the reference's router) and as they are
+    otherwise."""
     T = xf.shape[0]
     E, k = m.num_experts, m.experts_per_token
     logits = xf.float() @ router                              # [T, E]
     probs = torch.softmax(logits, dim=-1)
     gate_w, ids = torch.topk(probs, k, dim=-1)                # [T, k]
-    gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True)        # renormalize
+    if m.norm_topk_prob:
+        gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True)    # renormalize
 
     # ---- load-balancing auxiliary loss (Switch-style) ------------------
     me = probs.mean(dim=0)                                    # [E]

@@ -11,7 +11,9 @@ second one their [expert, source row] metadata), the local experts run,
 and a third ships the results back: cap rows of d to each peer and
 back, plus the metadata, and no reduction.
 
-The slot rule is the reference's: a running count per destination over
+The router renormalises its top-k weights as ``models/moe.py`` does,
+unless ``moe.norm_topk_prob`` is false.  The slot rule is the
+reference's: a running count per destination over
 the assignments in token-major, then k, order; an assignment past the
 capacity ``cap = max(int(cf * T_loc * k / n_tp), k)`` is dropped.  The
 local experts do not gather a [d, f] weight a received row, as the
@@ -75,7 +77,8 @@ def _local_pack(cfg: ModelConfig, router_logits: torch.Tensor,
     T, d = xf.shape
     probs = torch.softmax(router_logits.float(), dim=-1)
     gate_w, ids = torch.topk(probs, k, dim=-1)                # [T, k]
-    gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True)
+    if m.norm_topk_prob:
+        gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True)
 
     flat_ids = ids.reshape(T * k)
     dst = flat_ids // e_loc                                   # owner shard

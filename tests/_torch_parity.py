@@ -2,6 +2,7 @@
 data pipeline), two packages.  Parameters are made by one package and
 carried to the other through ``repro_torch.bridge`` as numpy arrays
 (``params``: JAX-made; ``port_params``: port-made); batches are numpy."""
+import dataclasses
 import os
 
 import jax
@@ -18,6 +19,26 @@ from repro_torch.bridge import params_from_numpy, params_to_numpy
 from repro_torch.configs import get_tiny_config as torch_tiny
 from repro_torch.data import pipeline as tpipe
 from repro_torch.models import init_params as torch_init
+
+
+# the port's config fields that the reference lacks, each at the default
+# that computes the reference's function
+PORT_ONLY = {("moe", "norm_topk_prob"): True}
+
+
+def reference_fields(tcfg, jcfg):
+    """(``asdict`` of the port's config cut to the reference's fields,
+    ``asdict`` of the reference's): each field that the port alone has
+    must hold its ``PORT_ONLY`` default, and is then left out."""
+    def cut(t, j, path=()):
+        if not (isinstance(t, dict) and isinstance(j, dict)):
+            return t
+        for k in set(t) - set(j):
+            assert path + (k,) in PORT_ONLY, (path, k)
+            assert t[k] == PORT_ONLY[path + (k,)], (path, k, t[k])
+        return {k: cut(t[k], j[k], path + (k,)) for k in t if k in j}
+    j = dataclasses.asdict(jcfg)
+    return cut(dataclasses.asdict(tcfg), j), j
 
 
 def configs(arch, **kw):

@@ -215,6 +215,29 @@ def test_grads_through_the_all_to_alls_match_moe_apply(ref, ranks):
             assert _scaled(got.numpy(), want.numpy()) < TOL
 
 
+@pytest.mark.parametrize("norm", [True, False])
+def test_ep_moe_plain_keeps_the_routers_setting(norm):
+    """With ``norm_topk_prob`` either way, every simulated rank of the
+    (2, 4) mesh returns its batch shard of the unsharded layer (capacity
+    for every assignment); the two settings differ."""
+    from repro_torch.models.moe import moe_init
+    cfg = _cfg()
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, norm_topk_prob=norm))
+    g = torch.Generator().manual_seed(8)
+    params = moe_init(cfg, g, torch.device("cpu"))
+    x = torch.randn(B, S, cfg.d_model, generator=g)
+    want, _ = moe_apply(cfg, params, x)
+    plain = ep.ep_moe_plain(cfg, params, x, n_tp=N_TP, n_batch=N_BATCH)
+    for b in range(N_BATCH):
+        for j in range(N_TP):
+            assert _scaled(plain[b, j].numpy(), _shard(want.numpy(), b)) \
+                < TOL
+    other = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                norm_topk_prob=not norm))
+    assert _scaled(moe_apply(other, params, x)[0].numpy(),
+                   want.numpy()) > 1e-2
+
+
 def test_local_params_and_capacity():
     cfg = _cfg()
     p = {k: torch.arange(8.).reshape(8, 1, 1) if k != "router"

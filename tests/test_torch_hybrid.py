@@ -32,7 +32,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.models import (
     decode_step, forward, init_cache, init_params, loss_fn, prefill,
 )
-from _torch_parity import batches, configs, f32, params
+from _torch_parity import batches, configs, f32, params, reference_fields
 
 ARCH = "jamba-1.5-large-398b"
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -332,5 +332,5 @@ def test_bridge_round_trip_with_experts(param_dtype):
 
 
 def test_config_matches_reference_field_by_field():
-    assert dataclasses.asdict(get_config(ARCH)) == \
-        dataclasses.asdict(jax_config(ARCH))
+    got, want = reference_fields(get_config(ARCH), jax_config(ARCH))
+    assert got == want

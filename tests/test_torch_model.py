@@ -9,8 +9,6 @@ import pytest
 
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
-import dataclasses
-
 import jax
 import numpy as np
 
@@ -20,7 +18,7 @@ from repro.models import forward as jforward
 from repro.models import prefill as jprefill
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import decode_step, forward, prefill
-from _torch_parity import batches, configs, f32, params
+from _torch_parity import batches, configs, f32, params, reference_fields
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 QWEN3 = ["qwen3-8b", "qwen3-4b"]
@@ -28,10 +26,14 @@ QWEN3 = ["qwen3-8b", "qwen3-4b"]
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_configs_match_reference_field_by_field(arch):
-    assert dataclasses.asdict(get_config(arch)) == \
-        dataclasses.asdict(jax_config(arch))
+    """Every field of the reference's config, with its value; the port's
+    own fields (``PORT_ONLY``: the router's ``norm_topk_prob``) at the
+    defaults that compute the reference's function."""
+    got, want = reference_fields(get_config(arch), jax_config(arch))
+    assert got == want
     jcfg, tcfg = configs(arch)
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    got, want = reference_fields(tcfg, jcfg)
+    assert got == want
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

@@ -29,7 +29,7 @@ from repro.models import moe as jmoe
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch.bridge import params_to_numpy
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, get_tiny_config
 from repro_torch.kernels import gmm as tgmm
 from repro_torch.models import (
     cache_batch_axes, decode_step, forward, init_params, loss_fn, prefill,
@@ -243,6 +243,51 @@ def test_qwen3_moe_fits_one_card():
     assert get_config("qwen3-moe-30b-a3b").param_count() == 30_532_120_576
     assert 2 * get_config("qwen3-moe-30b-a3b").param_count() < 80e9 * 0.8
     assert 2 * get_config("dbrx-132b").param_count() > 80e9
+
+
+@pytest.mark.parametrize("norm", [True, False])
+def test_slots_gate_weights_are_the_softmax_top_k(norm):
+    """``_slots``' gate weights are the softmax's top k, divided by their
+    sum only where ``norm_topk_prob`` (the reference's router; Jamba's
+    keeps them as they are)."""
+    cfg = get_tiny_config("qwen3-moe-30b-a3b")
+    m = dataclasses.replace(cfg.moe, norm_topk_prob=norm)
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(24, cfg.d_model, generator=g)
+    router = torch.randn(cfg.d_model, m.num_experts, generator=g)
+    C = tmoe._capacity(m, 24)
+    _, _, _, gate_w, _ = tmoe._slots(m, router, x, C)
+    top = (x @ router).softmax(-1).topk(m.experts_per_token, -1).values
+    want = top / top.sum(-1, keepdim=True) if norm else top
+    torch.testing.assert_close(gate_w, want, rtol=0, atol=0)
+    assert bool((gate_w.sum(-1) < 1 - 1e-3).any()) != norm
+
+
+@pytest.mark.parametrize("norm", [True, False])
+@pytest.mark.parametrize("impl", IMPLS)
+def test_moe_layer_weights_its_experts_by_the_routers_setting(impl, norm):
+    """The layer under either path (``"pallas"``: the kernels' plain
+    versions) equals a token-by-token sum of its top-k experts, each
+    weighted by the softmax's top-k weight, renormalised only where
+    ``norm_topk_prob``; capacity for every assignment."""
+    cfg = get_tiny_config("qwen3-moe-30b-a3b").replace(
+        dtype="float32", param_dtype="float32", scan_impl=impl)
+    cfg = _moe_cfg(cfg, norm_topk_prob=norm, capacity_factor=8.0)
+    m = cfg.moe
+    g = torch.Generator().manual_seed(7)
+    p = tmoe.moe_init(cfg, g, torch.device("cpu"))
+    x = torch.randn(1, 24, cfg.d_model, generator=g)
+    y, _ = tmoe.moe_apply(cfg, p, x)
+    top, ids = (x[0] @ p["router"]).softmax(-1).topk(m.experts_per_token, -1)
+    gate = top / top.sum(-1, keepdim=True) if norm else top
+    want = torch.zeros_like(x[0])
+    for t in range(24):
+        for j in range(m.experts_per_token):
+            e = int(ids[t, j])
+            h = torch.nn.functional.silu(x[0, t] @ p["wi_gate"][e]) \
+                * (x[0, t] @ p["wi_up"][e])
+            want[t] += gate[t, j] * (h @ p["wo"][e])
+    torch.testing.assert_close(y[0], want, rtol=1e-5, atol=1e-5)
 
 
 def test_cpu_route_launches_nothing():

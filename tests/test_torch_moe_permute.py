@@ -29,6 +29,7 @@ class _Moe:
     num_experts: int = 16
     experts_per_token: int = 4
     capacity_factor: float = 1.25
+    norm_topk_prob: bool = True
 
 
 def _routes(T, cf, dtype, d=24, seed=0):

@@ -36,17 +36,17 @@ def state():
     tracing.clear()
 
 
-def _setup(arch, scan_impl="pallas"):
+def _setup(arch, scan_impl="pallas", seq=S):
     cfg = get_tiny_config(arch).replace(dtype="float32",
                                         param_dtype="float32",
                                         scan_impl=scan_impl)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    toks = torch.randint(0, cfg.vocab_size, (B, S),
+    toks = torch.randint(0, cfg.vocab_size, (B, seq),
                          generator=torch.Generator().manual_seed(1))
     batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1),
-             "positions": torch.arange(S).expand(B, S)}
+             "positions": torch.arange(seq).expand(B, seq)}
     step = make_eval_step(RunConfig(model=cfg, shape=ShapeConfig(
-        "tiny", PREFILL, S, B)))
+        "tiny", PREFILL, seq, B)))
     return cfg, params, batch, step
 
 
@@ -139,6 +139,43 @@ def test_the_recorded_tree(state, arch):
         assert tm["self_ms"] == pytest.approx(
             tm["ms"] - t["spans"]["rwkv.wkv6"]["ms"], abs=1e-9)
     assert tracing.totals(last_units=1)["units"] == 1
+
+
+def test_the_hybrid_records_its_mixers_and_the_mamba_layers_parts(state):
+    """A tiny jamba unit (one superblock, experts on odd positions): each
+    position's mixer in ``attention`` or ``mamba``, its FFN in ``ffn``
+    (the ``moe.*`` spans inside an MoE's), each Mamba layer's conv, dt/B/C
+    inputs and scan as its children; the top-level spans cover at least
+    99% of ``eval_step`` (a warm step of 256 tokens a row, so that the
+    host's work between them is as small a share as on the card)."""
+    cfg, params, batch, step = _setup("jamba-1.5-large-398b", seq=256)
+    tracing.disable()
+    step(params, batch)
+    tracing.enable()
+    step(params, batch)
+    rows = tracing.records()[0]
+    root = next(i for i, r in enumerate(rows) if r["parent"] is None)
+    assert _children(rows, root) == ["embed"] + ["block"] * (
+        cfg.num_layers // cfg.hybrid_period) + ["logits", "loss"]
+    mixers = ["attention" if i == cfg.hybrid_attn_pos else "mamba"
+              for i in range(cfg.hybrid_period)]
+    for i in (j for j, r in enumerate(rows) if r["name"] == "block"):
+        kids = [j for j, r in enumerate(rows) if r["parent"] == i]
+        assert [rows[j]["name"] for j in kids] == [
+            n for mixer in mixers for n in (mixer, "ffn")]
+        for pos, j in enumerate(kids[1::2]):
+            moe = pos % cfg.moe.moe_every == cfg.moe.moe_offset
+            assert _children(rows, j) == (MOE_SPANS if moe else [])
+        for j in kids[::2]:
+            want = ["mamba.conv", "mamba.ssm_inputs", "mamba.scan"] \
+                if rows[j]["name"] == "mamba" else []
+            assert _children(rows, j) == want
+    top = sum(r["ms"] for r in rows if r["parent"] == root)
+    assert top >= 0.99 * rows[root]["ms"]
+    t = tracing.totals()
+    assert t["spans"]["mamba"]["calls"] == cfg.num_layers - 1
+    assert t["spans"]["mamba.scan"]["calls"] == cfg.num_layers - 1
+    assert 0 < t["counters"]["moe.kept"] <= t["counters"]["moe.slots"]
 
 
 def test_moe_kept_counts_the_assignments_within_capacity(state):
